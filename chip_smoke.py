@@ -7,27 +7,44 @@ In order, each phase raising on failure (so the exit code is non-zero):
 
 1. requires a CUDA device and prints the card's name and power limit;
 2. builds the kernels from csrc/ (one nvcc per source, in parallel);
-3. holds every kernel against its plain PyTorch version on the card, bit
-   for bit, on random inputs (4096 lanes, and 1000, not a multiple of the
-   128-thread block; identity, doubling and edge-value lanes 0, 1, p-1);
-4. drives the main path through the user entry points at the benchmark's
-   default size: n = 2^18 BLS12-377 G1 points, 1024 distinct base points
-   (i+1)·G tiled, `multi_scalar_mult_init`, then a warm-up and 4 timed
-   batches of seeded compact scalars; every result is checked against
-   the python-int oracle (sum_i agg_i·(i+1) mod r)·G, and every kernel of
-   the path must have been launched in that run;
+3. holds every MSM kernel against its plain PyTorch version on the card,
+   bit for bit, on random inputs (4096 lanes, and 1000, not a multiple of
+   the 128-thread block; identity, doubling and edge-value lanes 0, 1, p-1);
+3b. holds the Fr NTT kernel against its plain version, bit for bit,
+   forward and inverse, at n = 2, 8, 2^9, 2^10, 2^11 and 2^13 with B = 1 and
+   3 rows (random inputs holding 0, 1 and p-1), and checks intt(ntt(a)) == a;
+4. drives the MSM main path through the user entry points at the
+   benchmark's default size: n = 2^18 BLS12-377 G1 points, 1024 distinct
+   base points (i+1)·G tiled, `multi_scalar_mult_init`, then a warm-up and
+   4 timed batches of seeded compact scalars; every result is checked
+   against the python-int oracle (sum_i agg_i·(i+1) mod r)·G, and every
+   kernel of the path must have been launched in that run;
 5. profiles one MSM (device time by kernel, device idle share);
-6. times each kernel at the shapes the main path gives it, beside its
+6. times each MSM kernel at the shapes the main path gives it, beside its
    plain version and the least time the card could take (integer
    multiplies or bytes, whichever bounds), and checks kernel == plain
-   on those inputs too.
+   on those inputs too;
+7. drives the PLONK prover and verifier at the benchmark's size
+   (`BENCH_METRIC=plonk` of the reference: 16 Poseidon Merkle-membership
+   proofs of height 8, n = 2^16 gates): the circuit and its Merkle witness,
+   `setup_test_srs(n + 8)` and `setup` on the card, a warm-up proof and 2
+   timed proofs; every proof must verify, a proof with a tampered
+   evaluation and one with a wrong public input must be rejected, and the
+   warm-up proof must have launched the Fr NTT and all four MSM kernels
+   (the timed ones every kernel but te_dbl_chain, whose tables the warm-up
+   built); the host time of one proof's transcript; then one profiled
+   proof (device time of each port kernel and of the torch ops) and the
+   Fr NTT's row at the path's shapes (2^18 forward, B = 1; 2^16 inverse,
+   B = 3).
 
-Prints one JSON line for the main path, one {"kernels": [...]} line, the
-nvidia-smi line, and last {"ok": true, "device": {...}}.
+Prints one JSON line for the MSM path, one for the PLONK path, one
+{"kernels": [...]} line, the nvidia-smi line, and last
+{"ok": true, "device": {...}}.
 """
 
 import json
 import os
+import random
 import subprocess
 import sys
 import time
@@ -49,7 +66,18 @@ IMAD_PER_S = 16.75e12
 # one 12-word CIOS mulmod (csrc/fq.cuh): 288 32x32->64 products (a*b and
 # m*p), two IMAD slots each, and 12 low-half products for m, one each
 IMAD_PER_MULMOD = 2 * 288 + 12
+# the same for an 8-word (Fr) mulmod: 128 wide products and 8 low-half
+IMAD_PER_MULMOD_FR = 2 * 128 + 8
 MULMODS = {"madd": 7, "add": 9, "dbl": 8}
+NTT_SIZES = (1, 3, 9, 10, 11, 13)          # log2 n of the phase-3b checks
+PLONK_PROOFS, PLONK_HEIGHT = 16, 8         # bench.py's plonk workload
+PLONK_TIMED = 2
+# each port kernel's CUDA entry points (csrc/), to find them in a profile
+KERNEL_SYMBOLS = {"te_dbl_chain": ("k_dbl_chain",),
+                  "te_bucket_accumulate": ("k_bucket_accumulate",),
+                  "te_full_add": ("k_full_add",),
+                  "te_combine": ("k_combine",),
+                  "fr_ntt": ("k_ntt_tile", "k_ntt_stage")}
 
 
 def log(msg):
@@ -83,8 +111,8 @@ def max_abs_err(a, b):
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
-def bound_ms(mulmods, n_bytes):
-    ops = mulmods * IMAD_PER_MULMOD / IMAD_PER_S * 1e3
+def bound_ms(mulmods, n_bytes, imad_per_mulmod=IMAD_PER_MULMOD):
+    ops = mulmods * imad_per_mulmod / IMAD_PER_S * 1e3
     mem = n_bytes / HBM_BYTES_PER_S * 1e3
     return max(ops, mem), ("operations" if ops >= mem else "bytes")
 
@@ -93,13 +121,12 @@ def random_elems(fp, f, shape, rng, dev):
     """Uniform field elements (Montgomery words) with every edge value."""
     count = int(np.prod(shape))
     vals = [rng.randrange(f.p) for _ in range(count)]
-    vals[:3] = [0, 1, f.p - 1]
+    vals[:3] = [0, 1, f.p - 1][:count]
     return fp.from_ints(f, np.array(vals, dtype=object).reshape(shape), dev)
 
 
 def check_kernels_random(curve, dev, lanes):
     """Phase 3: every kernel == its plain version at `lanes` lanes."""
-    import random
     from zprize_tpu_torch.curve import te
     from zprize_tpu_torch.field import fp
     from zprize_tpu_torch.msm import accum_kernel as ak
@@ -237,19 +264,18 @@ def main_path(curve, dev):
     return ctx, aff, batches[1], launches, summary
 
 
-def profile_msm(ctx, batch):
-    """One MSM under torch.profiler: device time by kernel and the device
-    busy share of the call's wall time."""
+def profile_call(label, fn):
+    """One call of fn under torch.profiler (after one unprofiled call):
+    device time by kernel and the device busy share of the call's wall
+    time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from zprize_tpu_torch.msm import api
-    s = torch.from_numpy(batch.astype(np.int32)).to(ctx.device)
-    api.multi_scalar_mult(ctx, s)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        api.multi_scalar_mult(ctx, s)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
     # device-side events only: an aten op's own entry would count its
@@ -260,14 +286,53 @@ def profile_msm(ctx, batch):
                  and e.self_device_time_total > 0]
     by_kernel.sort(reverse=True)
     busy = sum(ms for ms, _, _ in by_kernel)
+    # device ms of the port's kernels (by their CUDA symbols); the rest is
+    # torch ops: the plain engine's glue, sorts, gathers and copies
+    ports = {name: sum(ms for ms, _, k in by_kernel
+                       if any(s in k for s in symbols))
+             for name, symbols in KERNEL_SYMBOLS.items()}
     out = {"profile_wall_ms": wall_ms,
            "device_busy_ms": busy if by_kernel else "not measured",
            "device_idle_share": (1 - busy / wall_ms) if by_kernel
            else "not measured",
+           "port_kernels_ms": ports,
+           "torch_ops_ms": busy - sum(ports.values()),
            "by_kernel": [{"name": k[:90], "ms": ms, "calls": n}
                          for ms, n, k in by_kernel[:14]]}
-    log(f"profiled MSM: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms")
+    log(f"profiled {label}: wall {wall_ms:.3f} ms, device busy "
+        f"{busy:.3f} ms, of it the port's kernels {ports}")
     return out
+
+
+def transcript_s(curve, vk, proof, public):
+    """Host seconds of one proof's Fiat-Shamir transcript: the prover's
+    absorbs and squeezes (plonk/prover.py) replayed on its proof."""
+    from zprize_tpu_torch.field import fp
+    from zprize_tpu_torch.plonk.prover import OPEN_ORDER
+    from zprize_tpu_torch.plonk.transcript import vk_transcript
+    t0 = time.time()
+    tr = vk_transcript(curve, vk)
+    for v in public:
+        tr.absorb_fr(v)
+    for cm in proof.wire_comms:
+        tr.absorb_point(cm)
+    tr.challenge(), tr.challenge()
+    tr.absorb_point(proof.z_comm)
+    tr.challenge()
+    for cm in proof.t_comms:
+        tr.absorb_point(cm)
+    tr.challenge()
+    evals = torch.stack([proof.evals[k] for k in (*OPEN_ORDER, "z_omega")])
+    for v in fp.to_ints(curve.scalar, evals):
+        tr.absorb_fr(int(v))
+    tr.challenge()
+    return time.time() - t0
+
+
+def profile_msm(ctx, batch):
+    from zprize_tpu_torch.msm import api
+    s = torch.from_numpy(batch.astype(np.int32)).to(ctx.device)
+    return profile_call("MSM", lambda: api.multi_scalar_mult(ctx, s))
 
 
 def kernel_rows(curve, ctx, aff, batch, launches, dev):
@@ -349,12 +414,208 @@ def kernel_rows(curve, ctx, aff, batch, launches, dev):
     return rows
 
 
+def check_ntt(dev):
+    """Phase 3b: fr_ntt == its plain version, forward and inverse, and the
+    round trip, at every size of NTT_SIZES with B = 1 and 3."""
+    from zprize_tpu_torch.field import fp
+    from zprize_tpu_torch.field.spec import BLS12_377_FR
+    from zprize_tpu_torch.ntt import fr_kernel
+    from zprize_tpu_torch.ntt.domain import Domain
+    f = BLS12_377_FR
+    rng = random.Random(SEED)
+    for log_n in NTT_SIZES:
+        dom = Domain(f, log_n, dev)
+        for rows in (1, 3):
+            a = random_elems(fp, f, (rows, dom.n), rng, dev)
+            errs = []
+            for inverse in (False, True):
+                out = fr_kernel.fr_ntt(dom, a, inverse)
+                errs.append(max_abs_err(
+                    out, fr_kernel.fr_ntt_plain(dom, a, inverse)))
+            back = fr_kernel.fr_ntt(dom, fr_kernel.fr_ntt(dom, a), True)
+            torch.cuda.synchronize()
+            errs.append(max_abs_err(back, a))
+            log(f"fr_ntt vs plain, n = 2^{log_n}, B = {rows}: forward "
+                f"{errs[0]}, inverse {errs[1]}, round trip {errs[2]}")
+            if any(errs):
+                raise AssertionError(f"fr_ntt disagrees at 2^{log_n}, "
+                                     f"B = {rows}")
+
+
+def plonk_witness(cfg, fr, n_proofs, height, rng, dev):
+    """bench.py's membership workload: the circuit, the Poseidon Merkle
+    tree over seeded leaves (on the card), and the full assignment."""
+    from zprize_tpu_torch.field import fp
+    from zprize_tpu_torch.hash import merkle
+    from zprize_tpu_torch.plonk.gadgets import generate_membership_circuit
+    cb, handles, indices = generate_membership_circuit(cfg, n_proofs, height)
+    leaves = [rng.randrange(fr.p) for _ in range(1 << height)]
+    levels = merkle.build_tree(cfg, fp.from_ints(fr, leaves, dev))
+    root = int(fp.to_ints(fr, merkle.root(levels))[()])
+    assignment = {}
+    for (leaf_var, sib_vars), idx in zip(handles, indices):
+        assignment[leaf_var] = leaves[idx]
+        sibs = torch.stack([sib for sib, _ in merkle.prove(levels, idx)])
+        for sv, v in zip(sib_vars, fp.to_ints(fr, sibs)):
+            assignment[sv] = int(v)
+    assignment = cb.compute_witness(assignment)
+    cc = cb.compile()
+    public = [root] * n_proofs
+    cc.check_assignment(assignment, public)
+    return cc, assignment, public
+
+
+def plonk_path(dev, n_proofs=PLONK_PROOFS, height=PLONK_HEIGHT):
+    """Phase 7: keygen, a warm-up and PLONK_TIMED timed proofs, each
+    verified, and two rejections."""
+    from zprize_tpu_torch.curve.spec import BLS12_377_G1
+    from zprize_tpu_torch.field import fp
+    from zprize_tpu_torch.hash.grain import snarkvm_config
+    from zprize_tpu_torch.msm import accum_kernel as ak
+    from zprize_tpu_torch.ntt import fr_kernel
+    from zprize_tpu_torch.pcs import kzg
+    from zprize_tpu_torch.plonk import prover, verifier
+    curve = BLS12_377_G1
+    fr = curve.scalar
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    rng = random.Random(17)
+
+    def counts():
+        return {**ak.launches, **fr_kernel.launches}
+
+    t0 = time.time()
+    cc, assignment, public = plonk_witness(snarkvm_config(fr, 2), fr,
+                                           n_proofs, height, rng, dev)
+    circuit_s = time.time() - t0
+    log(f"plonk: {n_proofs} membership proofs x height {height} -> n = "
+        f"{cc.n} ({len(cc.public_rows)} public rows), circuit and witness "
+        f"{circuit_s:.3f} s")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ak.reset_launches()
+    fr_kernel.reset_launches()
+    t0 = time.time()
+    srs = kzg.setup_test_srs(curve, cc.n + 8, seed=3, device=dev)
+    sync()
+    srs_s = time.time() - t0
+    t0 = time.time()
+    pk, vk = prover.setup(curve, cc, srs)
+    sync()
+    keygen_s = time.time() - t0
+    wires = fp.from_ints(fr, cc.wire_values(assignment).tolist(), dev)
+    log(f"SRS of {srs.size} powers {srs_s:.3f} s, keygen {keygen_s:.3f} s, "
+        f"launches {counts()}")
+
+    def run():
+        proof = prover.prove_planes(pk, wires, public, blinding_rng=rng)
+        sync()
+        return proof
+
+    def verified(proof, pub, expect):
+        t0 = time.time()
+        ok = verifier.verify(vk, srs, proof, pub)
+        dt = time.time() - t0
+        if ok != expect:
+            raise AssertionError(f"verify gave {ok}, expected {expect}")
+        return dt
+
+    per_proof, times, verify_s = [], [], []
+    for k in range(PLONK_TIMED + 1):
+        before = counts()
+        t0 = time.time()
+        proof = run()
+        times.append(time.time() - t0)
+        per_proof.append({name: v - before[name]
+                          for name, v in counts().items()})
+        verify_s.append(verified(proof, public, True))
+        log(f"proof {k} ({'warm-up' if k == 0 else 'timed'}): "
+            f"{times[-1]:.3f} s, verified in {verify_s[-1]:.3f} s, "
+            f"launches {per_proof[-1]}")
+    path_launches = counts()
+    missing = [name for name, v in per_proof[0].items() if v == 0]
+    if missing:
+        raise AssertionError(f"the warm-up proof launched no {missing}")
+    for k, launched in enumerate(per_proof[1:], 1):
+        missing = [name for name, v in launched.items()
+                   if v == 0 and name != "te_dbl_chain"]
+        if missing:
+            raise AssertionError(f"timed proof {k} launched no {missing}")
+    bad = dict(proof.evals)
+    bad["a"] = fp.add(fr, bad["a"], fp.ones(fr, (), dev))
+    verified(prover.Proof(proof.wire_comms, proof.z_comm, proof.t_comms, bad,
+                          proof.w_zeta, proof.w_zeta_omega), public, False)
+    verified(proof, [(public[0] + 1) % fr.p] * n_proofs, False)
+    log("tampered evaluation and wrong public input rejected")
+    tr_s = transcript_s(curve, vk, proof, public)
+    log(f"one proof's transcript on the host: {tr_s:.3f} s")
+    mean = sum(times[1:]) / PLONK_TIMED
+    summary = {
+        "metric": f"bls12_377_plonk_n{cc.n}",
+        "n": cc.n, "proofs": n_proofs, "height": height,
+        "prove_s": times[1:], "prove_s_mean": mean,
+        "ns_per_constraint": mean / cc.n * 1e9,
+        "warmup_prove_s": times[0],
+        "keygen_s": keygen_s, "srs_s": srs_s, "circuit_s": circuit_s,
+        "verify_s": verify_s, "transcript_s": tr_s,
+        "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                 if dev.type == "cuda" else None),
+        "launches_warmup_proof": per_proof[0],
+        "launches_per_proof": per_proof[-1],
+        "verified_proofs": PLONK_TIMED + 1, "rejected": 2,
+    }
+    return pk, wires, public, path_launches, summary
+
+
+def ntt_row(pk, launches, dev):
+    """The Fr NTT at the PLONK path's shapes, timed beside its plain
+    version and its bound, and checked against the plain version: the
+    quotient's 2^18 coset transform (forward, B = 1) first, and the wires'
+    2^16 inverse (B = 3) under "shapes"."""
+    from zprize_tpu_torch.field import fp
+    from zprize_tpu_torch.ntt import fr_kernel
+    fr_kernel.reset_launches()
+    f = pk.dom.spec
+    rng = random.Random(SEED + 1)
+    shapes = []
+    for dom, rows, inverse in ((pk.dom4, 1, False), (pk.dom, 3, True)):
+        a = random_elems(fp, f, (rows, dom.n), rng, dev)
+        ms = timed(lambda: fr_kernel.fr_ntt(dom, a, inverse), 10)
+        t0 = time.time()
+        ref = fr_kernel.fr_ntt_plain(dom, a, inverse)
+        torch.cuda.synchronize()
+        plain_ms = (time.time() - t0) * 1e3
+        err = max_abs_err(fr_kernel.fr_ntt(dom, a, inverse), ref)
+        if err != 0:
+            raise AssertionError("fr_ntt != plain at the path's shapes")
+        n = dom.n
+        mulmods = rows * (n // 2 * dom.log_n + (n if inverse else 0))
+        n_bytes = rows * n * 32 * 2 + n // 2 * 32
+        b_ms, b_by = bound_ms(mulmods, n_bytes, IMAD_PER_MULMOD_FR)
+        shapes.append({"n": n, "rows": rows, "inverse": inverse,
+                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": b_ms, "bound_by": b_by})
+        way = "inverse" if inverse else "forward"
+        log(f"fr_ntt 2^{dom.log_n} x {rows} {way}: {ms:.4f} ms (plain "
+            f"{plain_ms:.1f} ms, bound "
+            f"{b_ms:.4f} ms by {b_by}), kernel == plain")
+    first = shapes[0]
+    return {"name": "fr_ntt", "route": "cuda",
+            "source": "zprize_tpu_torch/csrc/ntt_fr.cu",
+            "replaces": "zprize_tpu/ntt/fr_kernel.py:65",
+            "launches": launches["fr_ntt"],
+            "max_abs_err": max(r["max_abs_err"] for r in shapes),
+            "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "library_ms": None, "shapes": shapes}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
     from zprize_tpu_torch.curve.spec import BLS12_377_G1
+    from zprize_tpu_torch.plonk import prover
     from zprize_tpu_torch.utils import build
 
     dev = torch.device("cuda")
@@ -373,10 +634,17 @@ def main():
     curve = BLS12_377_G1
     for lanes in (4096, 1000):
         check_kernels_random(curve, dev, lanes)
+    check_ntt(dev)
     ctx, aff, batch, launches, summary = main_path(curve, dev)
     summary["profile"] = profile_msm(ctx, batch)
     kernels = kernel_rows(curve, ctx, aff, batch, launches, dev)
+    del ctx, aff
+    pk, wires, public, plonk_launches, plonk = plonk_path(dev)
+    plonk["profile"] = profile_call("PLONK proof", lambda: prover.prove_planes(
+        pk, wires, public, blinding_rng=random.Random(18)))
+    kernels.append(ntt_row(pk, plonk_launches, dev))
     print(json.dumps(summary), flush=True)
+    print(json.dumps(plonk), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,13 @@
 """The port stands alone: every module imports with jax blocked, no source
 names jax or the reference package, and without a card the default-device
-entry points (the MSM's and the converters') and chip_smoke.py refuse to
-run."""
+entry points (the MSM's, the test SRS's and the converters') and
+chip_smoke.py refuse to run."""
 
 import pathlib
 import shutil
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -15,6 +16,7 @@ import torch
 from zprize_tpu_torch import convert
 from zprize_tpu_torch.curve.spec import BLS12_377_G1
 from zprize_tpu_torch.msm import api
+from zprize_tpu_torch.pcs import kzg
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "zprize_tpu_torch"
@@ -42,26 +44,30 @@ def test_every_module_imports_with_jax_blocked():
     ])
     r = _python(["-c", code], ROOT)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 16     # 12 modules, 4 subpackages
+    assert int(r.stdout.split()[-1]) >= 38     # 28 modules, 10 subpackages
 
 
 def test_sources_name_neither_jax_nor_the_reference_package():
     files = [p for p in PKG.rglob("*")
              if p.suffix in (".py", ".cu", ".cuh") and "_build" not in p.parts]
     files.append(ROOT / "chip_smoke.py")
-    assert len(files) >= 18
+    assert len(files) >= 43
     for path in files:
         text = path.read_text()
         assert "zprize_tpu." not in text, path
         assert "jax" not in text.lower(), path
 
 
-def test_default_device_entry_point_requires_a_card():
+@pytest.mark.parametrize("entry", ["msm_init", "test_srs"])
+def test_default_device_entry_point_requires_a_card(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        api.multi_scalar_mult_init(BLS12_377_G1, [(BLS12_377_G1.gen_x,
-                                                   BLS12_377_G1.gen_y)])
+        if entry == "msm_init":
+            api.multi_scalar_mult_init(BLS12_377_G1, [(BLS12_377_G1.gen_x,
+                                                       BLS12_377_G1.gen_y)])
+        else:
+            kzg.setup_test_srs(BLS12_377_G1, 4)
 
 
 _PLANES = np.zeros((2, BLS12_377_G1.field.n_limbs), np.uint32)
@@ -74,6 +80,12 @@ _CONVERTERS = {
         BLS12_377_G1, np.zeros((2, 17), np.uint16)),
     "prepared": lambda: convert.prepared_from_reference(
         BLS12_377_G1, np.zeros((39, 2), np.uint32), 8, 1, 1, 2),
+    "fr": lambda: convert.fr_from_reference(BLS12_377_G1,
+                                            np.zeros((2, 17), np.uint32)),
+    "srs": lambda: convert.srs_from_reference(types.SimpleNamespace(
+        curve=BLS12_377_G1, g1_powers=types.SimpleNamespace(
+            x=_PLANES, y=_PLANES, inf=[True, True]),
+        h=None, tau_h=None, tau=None)),
 }
 
 

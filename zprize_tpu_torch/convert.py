@@ -16,10 +16,11 @@ import numpy as np
 import torch
 
 from .curve import sw
-from .curve.spec import CurveSpec
+from .curve.spec import ALL_CURVES, CurveSpec
 from .field import fp
 from .field.spec import BASE_BITS, FieldSpec
 from .msm.pippenger import PreparedTe
+from .pcs.kzg import Srs
 from .utils.device import resolve_device
 
 
@@ -87,3 +88,57 @@ def prepared_from_reference(curve: CurveSpec, packed, c: int, g: int, m: int,
         planes.append(elements_from_reference(curve.field,
                                               limbs[:, :n_limbs], device))
     return PreparedTe(torch.stack(planes, dim=1).contiguous(), c, g, m, n)
+
+
+def fr_from_reference(curve: CurveSpec, planes, device=None) -> torch.Tensor:
+    """Reference scalar-field planes (..., 17), e.g. PLONK wire planes or
+    coefficients -> Montgomery words (..., 8) of the curve's Fr."""
+    return elements_from_reference(curve.scalar, planes, device)
+
+
+def srs_from_reference(ref_srs, device=None):
+    """A reference `kzg.Srs` -> this port's `pcs.kzg.Srs`: the G1 powers as
+    SW affine words on `device`, the G2 pair and tau as they are (ints)."""
+    curve = _port_curve(ref_srs.curve)
+    aff = ref_srs.g1_powers
+    return Srs(curve, points_from_reference(curve, aff.x, aff.y, aff.inf,
+                                            device),
+               ref_srs.h, ref_srs.tau_h, ref_srs.tau)
+
+
+def _port_curve(curve) -> CurveSpec:
+    """The port's CurveSpec of the same name as `curve` (either package's)."""
+    for c in ALL_CURVES:
+        if c.name == curve.name:
+            return c
+    raise ValueError(f"no curve named {curve.name} in the port")
+
+
+def point_ints(curve, pt):
+    """A projective point of either package -> affine ints or None."""
+    curve = _port_curve(curve)
+    if isinstance(pt.x, torch.Tensor):
+        return sw.to_affine_ints(curve, pt)
+    q = curve.field.p
+    x, y, z = (int(_ints(np.asarray(c))) % q for c in pt)
+    if z == 0:
+        return None
+    zinv = pow(z, -1, q)
+    return (x * zinv % q, y * zinv % q)
+
+
+def proof_ints(curve: CurveSpec, proof) -> dict:
+    """A PLONK proof of either package as canonical python ints:
+    {"comms": the 9 commitments (a, b, c, z, t_lo, t_mid, t_hi, w_zeta,
+    w_zeta_omega) as affine (x, y) or None, "evals": {name: int}}."""
+    curve = _port_curve(curve)
+    pts = [*proof.wire_comms, proof.z_comm, *proof.t_comms, proof.w_zeta,
+           proof.w_zeta_omega]
+    r = curve.order
+    evals = {}
+    for name, v in proof.evals.items():
+        if isinstance(v, torch.Tensor):
+            evals[name] = int(fp.to_ints(curve.scalar, v)[()])
+        else:
+            evals[name] = int(_ints(np.asarray(v))) % r
+    return {"comms": [point_ints(curve, q) for q in pts], "evals": evals}

@@ -31,29 +31,31 @@
 
 #include "fq.cuh"
 
-using fq::Fq;
-using fq::Params;
+// BLS12-377/381 base field: 12 words (csrc/fq.cuh)
+constexpr int NW = 12;
+using Fq = fq::Fe<NW>;
+using Params = fq::Params<NW>;
 
 namespace {
 
 constexpr int BLOCK = 128;
-constexpr int PT_WORDS = 4 * fq::NW;
-constexpr int PRE_WORDS = 3 * fq::NW;
+constexpr int PT_WORDS = 4 * NW;
+constexpr int PRE_WORDS = 3 * NW;
 
 struct Pt {
   Fq x, y, z, t;
 };
 
 __device__ __forceinline__ Pt load_pt(const uint32_t* src) {
-  return {fq::load(src), fq::load(src + fq::NW), fq::load(src + 2 * fq::NW),
-          fq::load(src + 3 * fq::NW)};
+  return {fq::load<NW>(src), fq::load<NW>(src + NW),
+          fq::load<NW>(src + 2 * NW), fq::load<NW>(src + 3 * NW)};
 }
 
 __device__ __forceinline__ void store_pt(uint32_t* dst, const Pt& a) {
   fq::store(dst, a.x);
-  fq::store(dst + fq::NW, a.y);
-  fq::store(dst + 2 * fq::NW, a.z);
-  fq::store(dst + 3 * fq::NW, a.t);
+  fq::store(dst + NW, a.y);
+  fq::store(dst + 2 * NW, a.z);
+  fq::store(dst + 3 * NW, a.t);
 }
 
 // Shared tail of the hwcd-3 adds: E=B-A, F=D-C, G=D+C, H=B+A.
@@ -71,8 +73,8 @@ __device__ __forceinline__ Pt finish(const Fq& a, const Fq& b, const Fq& c,
 // sign.
 __device__ __forceinline__ Pt madd(const Pt& p, const uint32_t* row, bool neg,
                                    const Params& P) {
-  Fq yp = fq::load(row), ym = fq::load(row + fq::NW);
-  Fq kt = fq::load(row + 2 * fq::NW);
+  Fq yp = fq::load<NW>(row), ym = fq::load<NW>(row + NW);
+  Fq kt = fq::load<NW>(row + 2 * NW);
   Fq a = fq::mul(fq::sub(p.y, p.x, P), neg ? yp : ym, P);
   Fq b = fq::mul(fq::add(p.y, p.x, P), neg ? ym : yp, P);
   Fq c = fq::mul(p.t, kt, P);
@@ -86,7 +88,7 @@ __device__ __forceinline__ Pt full_add(const Pt& p, const Pt& q,
                                        const Params& P) {
   Fq a = fq::mul(fq::sub(p.y, p.x, P), fq::sub(q.y, q.x, P), P);
   Fq b = fq::mul(fq::add(p.y, p.x, P), fq::add(q.y, q.x, P), P);
-  Fq c = fq::mul(fq::mul(p.t, q.t, P), fq::load(P.k), P);
+  Fq c = fq::mul(fq::mul(p.t, q.t, P), fq::load<NW>(P.k), P);
   Fq zz = fq::mul(p.z, q.z, P);
   Fq d = fq::add(zz, zz, P);
   return finish(a, b, c, d, P);
@@ -141,7 +143,8 @@ __global__ void __launch_bounds__(BLOCK)
   fq::load_params(P, params);
   long long b = (long long)blockIdx.x * BLOCK + threadIdx.x;
   if (b >= nbe) return;
-  Pt acc = {fq::zero(), fq::load(P.one), fq::load(P.one), fq::zero()};
+  Pt acc = {fq::zero<NW>(), fq::load<NW>(P.one), fq::load<NW>(P.one),
+            fq::zero<NW>()};
   long long r0 = starts[b], r1 = starts[b] + counts[b];
 #pragma unroll 1
   for (long long r = r0; r < r1; ++r)

@@ -263,6 +263,31 @@ def precompute(curve: CurveSpec, te_x, te_y) -> TePre:
                  fp.mul(f, k, fp.mul(f, te_x, te_y)))
 
 
+def te_to_sw_affine(curve: CurveSpec, pts: torch.Tensor):
+    """Packed extended TE points (..., 4, nw) -> SW affine planes
+    (x, y, inf) on their device, with one batched inversion.
+
+    The map of `te_to_sw_host` with the divisions gathered over one
+    denominator D = (Z - Y)·X·s:  u = (Z + Y)/(Z - Y) and v = u·ts·Z/X give
+    x = u/s + alpha = (Z + Y)·X/D + alpha and y = v/s = (Z + Y)·ts·Z/D.
+    D is zero only for the identity (flagged inf) and the 2-torsion point,
+    which comes out as (alpha, 0) since the inverse of 0 is 0."""
+    f = curve.field
+    pr = te_params(curve)
+    p = unpack(pts)
+    dev = pts.device
+    zpy = fp.add(f, p.z, p.y)
+    d = fp.mul(f, fp.mul(f, fp.sub(f, p.z, p.y), p.x),
+               fp.constant(f, pr.s, (), dev))
+    dinv = fp.batch_inv(f, d)
+    x = fp.add(f, fp.mul(f, fp.mul(f, zpy, p.x), dinv),
+               fp.constant(f, pr.alpha, (), dev))
+    y = fp.mul(f, fp.mul(f, zpy, fp.mul(f, p.z, fp.constant(f, pr.ts, (),
+                                                           dev))), dinv)
+    inf = fp.is_zero(f, p.x) & fp.eq(f, p.y, p.z)
+    return x, y, inf
+
+
 def te_to_sw_host(curve: CurveSpec, x: int, y: int, z: int
                   ) -> tuple[int, int, int]:
     """Exact host-int TE->SW conversion of ONE point (the MSM result):

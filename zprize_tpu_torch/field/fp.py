@@ -233,14 +233,21 @@ def pow_const(spec: FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
 
 
 def inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
-    """Fermat inverse a^(p-2); the inverse of 0 is 0."""
-    return pow_const(spec, a, spec.p - 2)
+    """Inverse of every element as python-int modular inverses on the host
+    (exact; the inverse of 0 is 0), returned on a's device.  A Fermat power
+    on word planes is about 560 multiplications, thousands of small launches
+    on the card for what the host does in microseconds per element; meant
+    for a few elements (`batch_inv` reduces any batch to one)."""
+    vals = to_ints(spec, a)
+    out = np.array([pow(int(v), -1, spec.p) if v else 0
+                    for v in vals.reshape(-1)], dtype=object)
+    return from_ints(spec, out.reshape(vals.shape), a.device)
 
 
 def batch_inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     """Inverse of every element (any batch shape) with Montgomery's trick
-    over a log-depth product tree: one Fermat inversion in all.  Zeros map
-    to zero."""
+    over a log-depth product tree: one host inversion (`inv`) in all.
+    Zeros map to zero."""
     shape = a.shape
     flat = a.reshape(-1, shape[-1])
     m = flat.shape[0]

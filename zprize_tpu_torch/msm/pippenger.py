@@ -81,6 +81,19 @@ def signed_digits(curve: CurveSpec, c: int, n_win: int,
     return digits
 
 
+def scalar_limbs(curve: CurveSpec, words: torch.Tensor) -> torch.Tensor:
+    """Montgomery scalar-field words (n, nw) -> the canonical base-2^15
+    limb planes (n, L) int32 that `msm` reads, on their device: leave
+    Montgomery form, then cut the 32-bit words into 15-bit limbs."""
+    fr = curve.scalar
+    w = fp.from_mont(fr, words).to(torch.int64) & 0xFFFFFFFF
+    w = torch.nn.functional.pad(w, (0, 1))
+    bit = torch.arange(fr.n_limbs, device=w.device) * BASE_BITS
+    i, sh = bit // 32, bit % 32
+    limbs = (w[:, i] >> sh) | (w[:, i + 1] << (32 - sh))
+    return (limbs & ((1 << BASE_BITS) - 1)).to(torch.int32)
+
+
 class PreparedTe(typing.NamedTuple):
     """Init-stage preprocessing: `table` (m*n, 3, nw) holds the
     precomputed operands of the m blocks 2^(c*g*j)·P, row j*n + i."""
