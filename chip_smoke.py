@@ -9,7 +9,9 @@ In order, each phase raising on failure (so the exit code is non-zero):
 2. builds the kernels from csrc/ (one nvcc per source, in parallel);
 3. holds every MSM kernel against its plain PyTorch version on the card,
    bit for bit, on random inputs (4096 lanes, and 1000, not a multiple of
-   the 128-thread block; identity, doubling and edge-value lanes 0, 1, p-1);
+   the 128-thread block; identity, doubling and edge-value lanes 0, 1, p-1;
+   for te_gather_accumulate empty runs, runs of one, identity and
+   edge-value rows, negative signs);
 3b. holds the Fr NTT kernel against its plain version, bit for bit,
    forward and inverse, at n = 2, 8, 2^9, 2^10, 2^11 and 2^13 with B = 1 and
    3 rows (random inputs holding 0, 1 and p-1), and checks intt(ntt(a)) == a;
@@ -19,11 +21,23 @@ In order, each phase raising on failure (so the exit code is non-zero):
    4 timed batches of seeded compact scalars; every result is checked
    against the python-int oracle (sum_i agg_i·(i+1) mod r)·G, and every
    kernel of the path must have been launched in that run;
-5. profiles one MSM (device time by kernel, device idle share);
-6. times each MSM kernel at the shapes the main path gives it, beside its
-   plain version and the least time the card could take (integer
-   multiplies or bytes, whichever bounds), and checks kernel == plain
-   on those inputs too;
+4b. drives the prize configuration, the m = 1 route: n = 2^26 points
+   (the same base set tiled 65,536 times), `multi_scalar_mult_init`
+   (plan c = 17, g = 16, m = 1: one operand per point, no collapse
+   table), a warm-up and 4 timed batches (CUDA events around each
+   `multi_scalar_mult` call on scalars already on the card), every result
+   checked against the oracle; each MSM must launch te_gather_accumulate,
+   te_full_add and te_combine, and neither te_bucket_accumulate nor
+   te_dbl_chain; then an m = 1 run at 2^12 with skewed scalars (all equal;
+   half zero, half equal), oracle-checked; then one profiled 2^26 MSM and
+   te_gather_accumulate's row at its main-path shape (window 0 of a 2^26
+   batch), timed beside its plain version and its bound and checked
+   against it;
+5. profiles one 2^18 MSM (device time by kernel, device idle share);
+6. times each MSM kernel of the 2^18 path at the shapes it gives them,
+   beside its plain version and the least time the card could take
+   (integer multiplies or bytes, whichever bounds), and checks
+   kernel == plain on those inputs too;
 7. drives the PLONK prover and verifier at the benchmark's size
    (`BENCH_METRIC=plonk` of the reference: 16 Poseidon Merkle-membership
    proofs of height 8, n = 2^16 gates): the circuit and its Merkle witness,
@@ -37,9 +51,9 @@ In order, each phase raising on failure (so the exit code is non-zero):
    Fr NTT's row at the path's shapes (2^18 forward, B = 1; 2^16 inverse,
    B = 3).
 
-Prints one JSON line for the MSM path, one for the PLONK path, one
-{"kernels": [...]} line, the nvidia-smi line, and last
-{"ok": true, "device": {...}}.
+Prints one JSON line for the 2^18 MSM path, one for the 2^26 path, one
+for the PLONK path, one {"kernels": [...]} line, the total time, the
+nvidia-smi line, and last {"ok": true, "device": {...}}.
 """
 
 import json
@@ -54,6 +68,8 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_LOG = 18
+PRIZE_LOG = 26                             # prize 1a: 2^26 points
+SKEW_LOG = 12
 N_BASE = 1 << 10
 BATCHES = 4
 SEED = 42
@@ -72,9 +88,15 @@ MULMODS = {"madd": 7, "add": 9, "dbl": 8}
 NTT_SIZES = (1, 3, 9, 10, 11, 13)          # log2 n of the phase-3b checks
 PLONK_PROOFS, PLONK_HEIGHT = 16, 8         # bench.py's plonk workload
 PLONK_TIMED = 2
+# the MSM kernels of the collapsed route (the 2^18 MSM and the PLONK
+# commits); the m = 1 route runs te_gather_accumulate instead of the
+# first two
+COLLAPSED_ROUTE = ("te_dbl_chain", "te_bucket_accumulate", "te_full_add",
+                   "te_combine")
 # each port kernel's CUDA entry points (csrc/), to find them in a profile
 KERNEL_SYMBOLS = {"te_dbl_chain": ("k_dbl_chain",),
                   "te_bucket_accumulate": ("k_bucket_accumulate",),
+                  "te_gather_accumulate": ("k_gather_accumulate",),
                   "te_full_add": ("k_full_add",),
                   "te_combine": ("k_combine",),
                   "fr_ntt": ("k_ntt_tile", "k_ntt_stage")}
@@ -173,6 +195,27 @@ def check_kernels_random(curve, dev, lanes):
     out = ak.te_bucket_accumulate(curve, rows, sign, starts, counts)
     results["te_bucket_accumulate"] = max_abs_err(
         out, ak.te_bucket_accumulate_plain(curve, rows, sign, starts, counts))
+
+    # te_gather_accumulate: two windows of lanes / 2 buckets over the same
+    # rows as a point table, each window with its own permutation
+    n_win = 2
+    for k, v in enumerate((0, 1, f.p - 1)):   # edge rows: raw words
+        rows[5 + k] = fp.raw_words(f, v, dev).expand(3, nw)
+    gen = torch.Generator(device=dev).manual_seed(SEED + lanes)
+    perm = torch.stack([torch.randperm(n_rows, generator=gen, device=dev)
+                        for _ in range(n_win)])
+    # runs that hold the edge rows and the identity row
+    perm[:, 4:9] = torch.tensor([4, 5, 6, 7, 1], device=dev)
+    perm[0, :2] = 3                       # one row twice in a run
+    gsign = torch.randint(0, 2, (n_win, n_rows), generator=gen,
+                          dtype=torch.int32, device=dev)
+    counts = counts.reshape(n_win, -1).contiguous()
+    counts[0, 2] = 1                      # a run of one
+    starts = starts.reshape(n_win, -1).contiguous()
+    out = ak.te_gather_accumulate(curve, rows, perm, gsign, starts, counts)
+    results["te_gather_accumulate"] = max_abs_err(
+        out, ak.te_gather_accumulate_plain(curve, rows, perm, gsign, starts,
+                                           counts))
     torch.cuda.synchronize()
     for name, err in results.items():
         log(f"kernel vs plain, {lanes} random lanes: {name} "
@@ -241,9 +284,10 @@ def main_path(curve, dev):
         check(k, res, batches[k])
         log(f"batch {k}: {times[-1]:.3f} ms, result verified")
     launches = dict(ak.launches)
-    missing = [name for name in ak.KERNELS if launches[name] == 0]
-    if missing:
-        raise AssertionError(f"main path launched no {missing}")
+    missing = [name for name in COLLAPSED_ROUTE if launches[name] == 0]
+    if missing or launches["te_gather_accumulate"]:
+        raise AssertionError(f"main path launched no {missing}, or the m = 1"
+                             " route's te_gather_accumulate")
     if init_launches["te_dbl_chain"] == 0 or 0 in (
             per_msm["te_bucket_accumulate"], per_msm["te_full_add"],
             per_msm["te_combine"]):
@@ -262,6 +306,142 @@ def main_path(curve, dev):
         "oracle_checked_batches": BATCHES + 1,
     }
     return ctx, aff, batches[1], launches, summary
+
+
+def prize_path(curve, dev):
+    """Phase 4b: the prize configuration on the m = 1 route: init + a
+    warm-up + BATCHES timed MSMs at 2^26, each oracle-checked, then the
+    skewed m = 1 run at 2^12.  Batches are drawn one at a time and
+    dropped after their check."""
+    from zprize_tpu_torch.curve import sw
+    from zprize_tpu_torch.field import fp
+    from zprize_tpu_torch.msm import accum_kernel as ak
+    from zprize_tpu_torch.msm import api, pippenger
+    from zprize_tpu_torch.utils import oracle
+    f = curve.field
+    n = 1 << PRIZE_LOG
+    reps = n // N_BASE
+    base = oracle.generator_chain(curve, N_BASE)
+    aff = sw.Affine(
+        fp.from_ints(f, [p[0] for p in base], dev).repeat(reps, 1),
+        fp.from_ints(f, [p[1] for p in base], dev).repeat(reps, 1),
+        torch.zeros(n, dtype=torch.bool, device=dev))
+    gen = torch.Generator(device=dev).manual_seed(SEED + PRIZE_LOG)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ak.reset_launches()
+    t0 = time.time()
+    ctx = api.multi_scalar_mult_init(curve, aff, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    del aff
+    init_launches = dict(ak.launches)
+    p = ctx.prepared
+    log(f"2^{PRIZE_LOG} init: {init_s:.3f} s, plan c={p.c} g={p.g} m={p.m}, "
+        f"table {p.table.numel() * 4 / 1e9:.3f} GB, launches "
+        f"{init_launches}")
+    if (p.c, p.g, p.m) != (17, 16, 1) or any(init_launches.values()):
+        raise AssertionError("the 2^26 init did not take the m = 1 plan")
+
+    def check(k, res, batch):
+        exp = oracle.chain_msm(curve, oracle.oracle_agg(curve, batch, N_BASE))
+        if sw.to_affine_ints(curve, res) != exp:
+            raise AssertionError(f"2^{PRIZE_LOG} batch {k}: MSM != oracle")
+
+    # the batches are drawn on the card from a seed (drawing 2^26 x 17
+    # limbs with numpy takes about a minute a batch) and copied to the
+    # host for the oracle; the warm-up goes through the API as a host
+    # uint16 batch, the timed ones as int16 tensors already on the card
+    t0 = time.time()
+    batch = oracle.scalar_batch_torch(curve, n, gen).cpu().numpy().view(
+        np.uint16)
+    gen_s = time.time() - t0
+    t0 = time.time()
+    res = api.multi_scalar_mult(ctx, batch)[0]
+    log(f"2^{PRIZE_LOG} warm-up MSM: {time.time() - t0:.3f} s (host clock, "
+        f"upload included); batch made in {gen_s:.1f} s")
+    check("warm-up", res, batch)
+    times, per_msm = [], []
+    for k in range(1, BATCHES + 1):
+        s = oracle.scalar_batch_torch(curve, n, gen)
+        torch.cuda.synchronize()
+        before = dict(ak.launches)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = api.multi_scalar_mult(ctx, s)[0]
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        per_msm.append({name: ak.launches[name] - before[name]
+                        for name in ak.KERNELS})
+        batch = s.cpu().numpy().view(np.uint16)
+        del s
+        check(k, res, batch)
+        log(f"2^{PRIZE_LOG} batch {k}: {times[-1]:.3f} ms, result verified, "
+            f"launches {per_msm[-1]}")
+    launches = dict(ak.launches)
+    for k, launched in enumerate(per_msm, 1):
+        if (0 in (launched["te_gather_accumulate"], launched["te_full_add"],
+                  launched["te_combine"])
+                or launched["te_bucket_accumulate"]
+                or launched["te_dbl_chain"]):
+            raise AssertionError(f"2^{PRIZE_LOG} MSM {k} launches {launched}"
+                                 " are not the m = 1 route's")
+    peak = torch.cuda.max_memory_allocated()
+    n_win = pippenger.num_windows(curve, p.c)
+    in_flight = {nbe: pippenger.windows_in_flight(n, nbe, len(ws), dev)
+                 for nbe, ws in pippenger.window_groups(
+                     curve, p.c, n_win, 1 << (p.c - 1)).items()}
+    mean = sum(times) / len(times)
+    summary = {
+        "metric": f"bls12_377_msm_2^{PRIZE_LOG}",
+        "n": n, "c": p.c, "g": p.g, "m": p.m,
+        "msm_ms": times, "msm_ms_mean": mean,
+        "points_per_s": n / (mean / 1e3),
+        "init_s": init_s,
+        "windows_in_flight": in_flight,
+        "max_memory_allocated": peak,
+        "launches_init": init_launches,
+        "launches_per_msm": per_msm[-1],
+        "oracle_checked_batches": BATCHES + 1,
+        "scalar_batch_host_s": gen_s,
+    }
+    summary["skewed_2^12"] = skewed_run(curve, dev)
+    return ctx, batch, launches, summary
+
+
+def skewed_run(curve, dev):
+    """An m = 1 run at 2^12 (collapse=False: c = 9) with skewed scalars:
+    all equal, and half zero with the rest equal; oracle-checked."""
+    from zprize_tpu_torch.curve import sw
+    from zprize_tpu_torch.msm import api
+    from zprize_tpu_torch.utils import oracle
+    n = 1 << SKEW_LOG
+    pts = oracle.generator_chain(curve, n)
+    one = oracle.scalar_batch_np(curve, np.random.default_rng(SEED), 1)[0]
+    batch = np.stack([np.tile(one, (n, 1))] * 2)
+    batch[1, ::2] = 0
+    ctx = api.multi_scalar_mult_init(curve, pts, device=dev, collapse=False)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    res = api.multi_scalar_mult(ctx, batch)
+    torch.cuda.synchronize()
+    ms = (time.time() - t0) * 1e3 / 2
+    k = sum(int(v) << (15 * j) for j, v in enumerate(one))
+    for name, r, idx in (("all equal", res[0], range(n)),
+                         ("half zero", res[1], range(1, n, 2))):
+        exp = oracle.ec_mul(oracle.generator(curve),
+                            k * sum(i + 1 for i in idx) % curve.order,
+                            curve.field.p)
+        if sw.to_affine_ints(curve, r) != exp:
+            raise AssertionError(f"skewed 2^{SKEW_LOG} run ({name}) != "
+                                 "oracle")
+    log(f"skewed m = 1 run at 2^{SKEW_LOG} (c = {ctx.prepared.c}): all "
+        f"equal and half zero verified, {ms:.1f} ms per MSM (host clock)")
+    return {"n": n, "c": ctx.prepared.c, "ms_per_msm_host": ms,
+            "verified": 2}
 
 
 def profile_call(label, fn):
@@ -331,8 +511,9 @@ def transcript_s(curve, vk, proof, public):
 
 def profile_msm(ctx, batch):
     from zprize_tpu_torch.msm import api
-    s = torch.from_numpy(batch.astype(np.int32)).to(ctx.device)
-    return profile_call("MSM", lambda: api.multi_scalar_mult(ctx, s))
+    s = torch.from_numpy(batch.view(np.int16)).to(ctx.device)
+    return profile_call(f"MSM at {ctx.prepared.n} points",
+                        lambda: api.multi_scalar_mult(ctx, s))
 
 
 def kernel_rows(curve, ctx, aff, batch, launches, dev):
@@ -414,6 +595,46 @@ def kernel_rows(curve, ctx, aff, batch, launches, dev):
     return rows
 
 
+def gather_row(curve, ctx, batch, launches, dev):
+    """te_gather_accumulate at its main-path shape, window 0 of a 2^26
+    batch (2^26 rows, 2^16 buckets): timed beside its plain version and
+    its bound, and checked against the plain version."""
+    from zprize_tpu_torch.field import fp
+    from zprize_tpu_torch.msm import accum_kernel as ak
+    from zprize_tpu_torch.msm import pippenger
+    p = ctx.prepared
+    limbs = torch.from_numpy(batch.view(np.int16)).to(dev).t().contiguous()
+    carry = torch.zeros(p.n, dtype=torch.int32, device=dev)
+    digits, _ = pippenger.signed_digits_range(curve, p.c, 0, 1, limbs, carry)
+    del limbs, carry
+    nbe = 1 << (p.c - 1)
+    runs = pippenger.sort_windows(digits, nbe)
+    del digits
+    ms = timed(lambda: ak.te_gather_accumulate(curve, p.table, *runs), 3)
+    t0 = time.time()
+    ref = ak.te_gather_accumulate_plain(curve, p.table, *runs)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    err = max_abs_err(ak.te_gather_accumulate(curve, p.table, *runs), ref)
+    if err != 0:
+        raise AssertionError("te_gather_accumulate != plain at the main-path "
+                             "shape")
+    rows = int(runs[3].sum())          # the rows of buckets 1..nbe
+    nw = fp.n_words(curve.field)
+    b_ms, b_by = bound_ms(rows * MULMODS["madd"],
+                          rows * (3 * 4 * nw + 8 + 4) + nbe * (16 + 16 * nw))
+    log(f"te_gather_accumulate at 2^{PRIZE_LOG} rows x {nbe} buckets: "
+        f"{ms:.4f} ms (plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms by "
+        f"{b_by}), kernel == plain")
+    return {"name": "te_gather_accumulate", "route": "cuda",
+            "source": "zprize_tpu_torch/csrc/msm_te.cu",
+            "replaces": "zprize_tpu/msm/accum_kernel.py:658",
+            "launches": launches["te_gather_accumulate"],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "rows": rows, "buckets": nbe}
+
+
 def check_ntt(dev):
     """Phase 3b: fr_ntt == its plain version, forward and inverse, and the
     round trip, at every size of NTT_SIZES with B = 1 and 3."""
@@ -481,7 +702,8 @@ def plonk_path(dev, n_proofs=PLONK_PROOFS, height=PLONK_HEIGHT):
     rng = random.Random(17)
 
     def counts():
-        return {**ak.launches, **fr_kernel.launches}
+        return {**{k: ak.launches[k] for k in COLLAPSED_ROUTE},
+                **fr_kernel.launches}
 
     t0 = time.time()
     cc, assignment, public = plonk_witness(snarkvm_config(fr, 2), fr,
@@ -618,6 +840,7 @@ def main():
     from zprize_tpu_torch.plonk import prover
     from zprize_tpu_torch.utils import build
 
+    start_s = time.time()
     dev = torch.device("cuda")
     card = card_line()
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
@@ -639,13 +862,21 @@ def main():
     summary["profile"] = profile_msm(ctx, batch)
     kernels = kernel_rows(curve, ctx, aff, batch, launches, dev)
     del ctx, aff
+    torch.cuda.empty_cache()
+    ctx, batch, launches, prize = prize_path(curve, dev)
+    prize["profile"] = profile_msm(ctx, batch)
+    kernels.insert(2, gather_row(curve, ctx, batch, launches, dev))
+    del ctx, batch
+    torch.cuda.empty_cache()
     pk, wires, public, plonk_launches, plonk = plonk_path(dev)
     plonk["profile"] = profile_call("PLONK proof", lambda: prover.prove_planes(
         pk, wires, public, blinding_rng=random.Random(18)))
     kernels.append(ntt_row(pk, plonk_launches, dev))
     print(json.dumps(summary), flush=True)
+    print(json.dumps(prize), flush=True)
     print(json.dumps(plonk), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
+    log(f"chip_smoke total: {time.time() - start_s:.1f} s")
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

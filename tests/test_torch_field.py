@@ -18,6 +18,7 @@ from zprize_tpu_torch.curve.spec import BLS12_377_G1
 from zprize_tpu_torch.field import fp
 from zprize_tpu_torch.field import spec
 from zprize_tpu_torch.utils import oracle
+from torch_memory import release_memory  # noqa: F401
 
 # small tensors: intra-op threads cost more than they give, and the suite
 # runs several workers side by side

@@ -19,6 +19,7 @@ from zprize_tpu_torch.field import fp
 from zprize_tpu_torch.field.spec import BLS12_377_FR as FR
 from zprize_tpu_torch.hash import merkle, poseidon
 from zprize_tpu_torch.hash.grain import snarkvm_config
+from torch_memory import release_memory  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -1,7 +1,7 @@
 """The port stands alone: every module imports with jax blocked, no source
 names jax or the reference package, and without a card the default-device
-entry points (the MSM's, the test SRS's and the converters') and
-chip_smoke.py refuse to run."""
+entry points (the MSM's, the test SRS's, the NTT domain's and the
+converters') and chip_smoke.py refuse to run."""
 
 import pathlib
 import shutil
@@ -16,7 +16,9 @@ import torch
 from zprize_tpu_torch import convert
 from zprize_tpu_torch.curve.spec import BLS12_377_G1
 from zprize_tpu_torch.msm import api
+from zprize_tpu_torch.ntt.domain import Domain
 from zprize_tpu_torch.pcs import kzg
+from torch_memory import release_memory  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "zprize_tpu_torch"
@@ -58,7 +60,7 @@ def test_sources_name_neither_jax_nor_the_reference_package():
         assert "jax" not in text.lower(), path
 
 
-@pytest.mark.parametrize("entry", ["msm_init", "test_srs"])
+@pytest.mark.parametrize("entry", ["msm_init", "test_srs", "domain"])
 def test_default_device_entry_point_requires_a_card(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
@@ -66,8 +68,10 @@ def test_default_device_entry_point_requires_a_card(entry):
         if entry == "msm_init":
             api.multi_scalar_mult_init(BLS12_377_G1, [(BLS12_377_G1.gen_x,
                                                        BLS12_377_G1.gen_y)])
-        else:
+        elif entry == "test_srs":
             kzg.setup_test_srs(BLS12_377_G1, 4)
+        else:
+            Domain(BLS12_377_G1.scalar, 3)
 
 
 _PLANES = np.zeros((2, BLS12_377_G1.field.n_limbs), np.uint32)

@@ -21,6 +21,7 @@ from zprize_tpu_torch.curve.spec import BLS12_381_G1
 from zprize_tpu_torch.field import fp
 from zprize_tpu_torch.msm import api, pippenger
 from zprize_tpu_torch.utils import oracle
+from torch_memory import release_memory  # noqa: F401
 
 # small tensors: intra-op threads cost more than they give, and the suite
 # runs several workers side by side
@@ -115,7 +116,8 @@ def test_slice_matches_oracle_with_two_bucket_sets():
 
 
 @pytest.mark.parametrize("log_n, plan", [(6, (8, 1, 33)), (8, (11, 1, 24)),
-                                         (18, (17, 1, 16)), (22, (17, 3, 6))])
+                                         (18, (17, 1, 16)), (22, (17, 3, 6)),
+                                         (24, (17, 16, 1)), (26, (17, 16, 1))])
 def test_plans_match_reference(log_n, plan):
     n = 1 << log_n
     assert pippenger.plan_collapse(CURVE, n) == plan
@@ -135,17 +137,21 @@ def test_signed_digits_match_reference(c):
 
 
 def test_unported_routes_raise():
+    """The m = 1 plans now build their table (the route is held in
+    test_torch_msm_m1.py); the SW route and the jittable forms raise,
+    naming their ROADMAP item."""
     pts = oracle.generator_chain(CURVE, 16)
     aff = sw.Affine(fp.from_ints(CURVE.field, [p[0] for p in pts]),
                     fp.from_ints(CURVE.field, [p[1] for p in pts]),
                     torch.zeros(16, dtype=torch.bool))
-    with pytest.raises(NotImplementedError, match="m = 1"):
-        pippenger.prepare_points(CURVE, aff, collapse=False)
-    with pytest.raises(NotImplementedError, match="m = 1"):  # budget -> m=1
-        pippenger.prepare_points(CURVE, aff, c=8, budget_bytes=1)
+    prep = pippenger.prepare_points(CURVE, aff, collapse=False)
+    assert (prep.c, prep.g, prep.m) == (4, 65, 1)
+    prep = pippenger.prepare_points(CURVE, aff, c=8, budget_bytes=1)
+    assert (prep.c, prep.g, prep.m) == (8, 33, 1)       # budget -> m = 1
+    assert tuple(prep.table.shape) == (16, 3, 12)
     with pytest.raises(NotImplementedError, match="short-Weierstrass"):
         api.multi_scalar_mult_init(BLS12_381_G1, [], device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 11"):
         pippenger.msm_jit_static(CURVE, aff, None)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 11"):
         pippenger.msm_jit_batch(CURVE, aff, None)

@@ -24,6 +24,7 @@ from zprize_tpu_torch.field import fp
 from zprize_tpu_torch.msm import accum_kernel as ak
 from zprize_tpu_torch.msm import te_path
 from zprize_tpu_torch.utils import oracle
+from torch_memory import release_memory  # noqa: F401
 
 # small tensors: intra-op threads cost more than they give, and the suite
 # runs several workers side by side

@@ -18,6 +18,7 @@ from zprize_tpu.ntt import radix2 as ref_radix2
 from zprize_tpu_torch.field import fp, spec
 from zprize_tpu_torch.ntt import fr_kernel, radix2
 from zprize_tpu_torch.ntt.domain import Domain, primitive_root
+from torch_memory import release_memory  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -51,7 +52,7 @@ def test_primitive_root_and_tables_match_reference(name):
         assert primitive_root(f, log_n) == ref_domain.primitive_root(
             ref_f, log_n)
     for log_n in (1, 4, 7):
-        dom, ref = Domain(f, log_n), ref_domain.Domain(ref_f, log_n)
+        dom, ref = Domain(f, log_n, "cpu"), ref_domain.Domain(ref_f, log_n)
         assert (dom.w, dom.w_inv, dom.n_inv) == (ref.w, ref.w_inv, ref.n_inv)
         assert _ints(f, dom.pows) == [int(v) for v in
                                       ref_fp.to_ints(ref_f, ref.pows)]
@@ -63,15 +64,15 @@ def test_primitive_root_and_tables_match_reference(name):
 
 
 def test_domain_is_cached_per_device():
-    assert Domain(FR, 3) is Domain(FR, 3, "cpu")
-    assert Domain(FR, 3) is not Domain(FR, 4)
+    assert Domain(FR, 3, "cpu") is Domain(FR, 3, torch.device("cpu"))
+    assert Domain(FR, 3, "cpu") is not Domain(FR, 4, "cpu")
 
 
 @pytest.mark.parametrize("log_n", range(1, 7))
 @pytest.mark.parametrize("rows", [1, 3])
 def test_ntt_matches_python_dft(log_n, rows):
     n = 1 << log_n
-    dom = Domain(FR, log_n)
+    dom = Domain(FR, log_n, "cpu")
     vals = [_values(FR, n, 100 * log_n + r) for r in range(rows)]
     a = fp.from_ints(FR, vals)
     fwd = radix2.ntt(dom, a)
@@ -86,7 +87,7 @@ def test_ntt_matches_python_dft(log_n, rows):
 
 
 def test_ntt_along_another_axis_and_n_of_one():
-    dom = Domain(FR, 3)
+    dom = Domain(FR, 3, "cpu")
     vals = [_values(FR, 3, 7 + j) for j in range(8)]          # (n=8, 3)
     a = fp.from_ints(FR, vals)
     got = radix2.ntt(dom, a, axis=0)
@@ -94,7 +95,7 @@ def test_ntt_along_another_axis_and_n_of_one():
             for c in range(3)]
     assert _ints(FR, got) == [cols[c][k] for k in range(8) for c in range(3)]
     one = fp.from_ints(FR, [[5]])
-    assert torch.equal(radix2.intt(Domain(FR, 0), one), one)
+    assert torch.equal(radix2.intt(Domain(FR, 0, "cpu"), one), one)
 
 
 @pytest.mark.parametrize("log_n", [3, 5])
@@ -104,7 +105,7 @@ def test_ntt_matches_reference(log_n):
     f, ref_f = FIELDS["fr377"]
     n = 1 << log_n
     vals = [_values(f, n, 40 + log_n + r) for r in range(3)]
-    dom, ref_dom = Domain(f, log_n), ref_domain.Domain(ref_f, log_n)
+    dom, ref_dom = Domain(f, log_n, "cpu"), ref_domain.Domain(ref_f, log_n)
     ref_a = jnp.asarray(ref_fp.from_ints_np(ref_f, vals))
     a = fp.from_ints(f, vals)
     for ours, theirs in ((radix2.ntt, ref_radix2.ntt),
@@ -115,7 +116,7 @@ def test_ntt_matches_reference(log_n):
 
 
 def test_wrapper_checks_its_input():
-    dom = Domain(FR, 3)
+    dom = Domain(FR, 3, "cpu")
     with pytest.raises(ValueError, match="expected"):
         fr_kernel.fr_ntt(dom, fp.zeros(FR, (1, 4)))
     with pytest.raises(TypeError):

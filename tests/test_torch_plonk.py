@@ -26,6 +26,7 @@ from zprize_tpu_torch.plonk import prover, verifier
 from zprize_tpu_torch.plonk.circuit import CircuitBuilder
 from zprize_tpu_torch.plonk.transcript import Transcript
 from zprize_tpu_torch.utils import oracle
+from torch_memory import release_memory  # noqa: F401
 
 torch.set_num_threads(1)
 

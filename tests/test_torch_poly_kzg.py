@@ -14,6 +14,7 @@ from zprize_tpu_torch.msm import pippenger
 from zprize_tpu_torch.pcs import kzg
 from zprize_tpu_torch.poly import ops
 from zprize_tpu_torch.utils import oracle
+from torch_memory import release_memory  # noqa: F401
 
 torch.set_num_threads(1)
 

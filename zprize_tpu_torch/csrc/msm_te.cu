@@ -1,6 +1,6 @@
 // Twisted-Edwards (a = -1, extended coordinates) MSM kernels for Hopper.
 //
-// Four kernels, each with a plain C launcher that ctypes binds
+// Five kernels, each with a plain C launcher that ctypes binds
 // (zprize_tpu_torch/msm/accum_kernel.py holds the wrappers and the plain
 // PyTorch version of each).  A launcher takes device pointers, sizes and
 // the stream, allocates nothing, launches on that stream without
@@ -8,13 +8,14 @@
 //
 // Layouts (int32 words, contiguous, row-major):
 //   point    (..., 4, 12): X, Y, Z, T in Montgomery form (csrc/fq.cuh)
-//   operand  (..., 3, 12): Y+X, Y-X, 2d*X*Y of an affine point
+//   operand  (..., 3, 12): Y+X, Y-X, 2d*X*Y of an affine point (144 bytes,
+//                          nine 16-byte words)
 //
 // The formulas are the op sequences of zprize_tpu_torch/curve/te.py
 // (add_mixed, add, dbl): keep them in lockstep, since kernel and plain
 // version must agree bit for bit.
 //
-// What bounds all four on an H100: 32-bit integer multiplies.  One field
+// What bounds all five on an H100: 32-bit integer multiplies.  One field
 // multiplication (mulmod) is 588 IMAD issue slots (csrc/fq.cuh); the
 // kernels read and write a few hundred bytes per thousands of multiplies,
 // so memory is far from the limit.  A mixed add costs 7
@@ -152,6 +153,60 @@ __global__ void __launch_bounds__(BLOCK)
   store_pt(out + b * PT_WORDS, acc);
 }
 
+// Load one 144-byte operand row as nine 16-byte reads (rows start at
+// multiples of 144 bytes from a 16-byte aligned table).
+__device__ __forceinline__ void load_row(uint32_t (&w)[PRE_WORDS],
+                                         const uint32_t* __restrict__ row) {
+  const uint4* src = reinterpret_cast<const uint4*>(row);
+#pragma unroll
+  for (int k = 0; k < PRE_WORDS / 4; ++k) {
+    uint4 v = __ldg(src + k);
+    w[4 * k] = v.x;
+    w[4 * k + 1] = v.y;
+    w[4 * k + 2] = v.z;
+    w[4 * k + 3] = v.w;
+  }
+}
+
+// te_gather_accumulate: replaces make_te_mixed_add (and the rank loop of
+// accumulate_te_pallas, zprize_tpu/msm/accum_kernel.py), the m = 1
+// route's accumulate.  Lane i = w * nbe + b of W windows sums bucket b of
+// window w: the rows table[perm[w, r]] for r in starts[i] .. starts[i] +
+// counts[i], each negated where sign[w, r] != 0.  Bound: 7 mulmods per
+// row; bytes are a 144-byte row, an 8-byte index and a 4-byte sign per
+// row, far below the multiplies.  Design: as k_bucket_accumulate, one
+// thread per bucket lane walks its whole run from the identity with the
+// point in registers, but reads each row through the index straight from
+// the point table, so no sorted copy of the table is written and read
+// again.  The thread's walk takes the place of the TPU's tier loop and the
+// sort by |digit| that of its tier schedule.  A bucket holding most rows
+// (skewed scalars) makes one thread walk them all: right, but serial.
+// Offsets are 64-bit: a 2^26-point table holds 2.4e9 words.
+__global__ void __launch_bounds__(BLOCK)
+    k_gather_accumulate(const uint32_t* params,
+                        const uint32_t* __restrict__ table,
+                        const long long* __restrict__ perm,
+                        const int32_t* __restrict__ sign,
+                        const long long* __restrict__ starts,
+                        const long long* __restrict__ counts, uint32_t* out,
+                        long long n, long long nbe, long long lanes) {
+  __shared__ Params P;
+  fq::load_params(P, params);
+  long long i = (long long)blockIdx.x * BLOCK + threadIdx.x;
+  if (i >= lanes) return;
+  long long base = (i / nbe) * n;
+  Pt acc = {fq::zero<NW>(), fq::load<NW>(P.one), fq::load<NW>(P.one),
+            fq::zero<NW>()};
+  long long r0 = base + starts[i], r1 = r0 + counts[i];
+  uint32_t row[PRE_WORDS];
+#pragma unroll 1
+  for (long long r = r0; r < r1; ++r) {
+    load_row(row, table + perm[r] * PRE_WORDS);
+    acc = madd(acc, row, sign[r] != 0, P);
+  }
+  store_pt(out + i * PT_WORDS, acc);
+}
+
 // te_full_add: replaces make_te_full_add (zprize_tpu/msm/accum_kernel.py),
 // the adder of the triangle and bit-decomposed bucket merges.  Bound: 9
 // mulmods per lane.  Design: one thread per lane; skip lanes pass p
@@ -213,6 +268,19 @@ int te_bucket_accumulate(const void* params, const void* rows,
   k_bucket_accumulate<<<grid_for(nbe), BLOCK, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)params, (const uint32_t*)rows, (const int32_t*)sign,
       (const long long*)starts, (const long long*)counts, (uint32_t*)out, nbe);
+  return (int)cudaGetLastError();
+}
+
+int te_gather_accumulate(const void* params, const void* table,
+                         const void* perm, const void* sign,
+                         const void* starts, const void* counts, void* out,
+                         long long n, long long nbe, long long lanes,
+                         void* stream) {
+  if (lanes <= 0) return 0;
+  k_gather_accumulate<<<grid_for(lanes), BLOCK, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)params, (const uint32_t*)table, (const long long*)perm,
+      (const int32_t*)sign, (const long long*)starts,
+      (const long long*)counts, (uint32_t*)out, n, nbe, lanes);
   return (int)cudaGetLastError();
 }
 

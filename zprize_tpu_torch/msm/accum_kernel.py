@@ -1,8 +1,8 @@
-"""The four twisted-Edwards MSM kernels: wrappers, launch counts and plain
+"""The five twisted-Edwards MSM kernels: wrappers, launch counts and plain
 versions.
 
 Each wrapper takes int32 Montgomery-word tensors (layouts in
-``csrc/msm_te.cu``: points ``(L, 4, n_words)``, sorted operands
+``csrc/msm_te.cu``: points ``(L, 4, n_words)``, operand rows
 ``(R, 3, n_words)``), checks device, dtype, shape and contiguity, and
 
 * on CUDA tensors launches its hand-written kernel from ``csrc/msm_te.cu``
@@ -18,6 +18,7 @@ hold each kernel against them bit for bit.
 | --------------------- | -------------------------------------------------------- |
 | te_dbl_chain          | make_te_dbl_chain                                        |
 | te_bucket_accumulate  | make_te_mixed_add_slab (+ the loop of accumulate_te_sorted) |
+| te_gather_accumulate  | make_te_mixed_add (+ the rank loop of accumulate_te_pallas) |
 | te_full_add           | make_te_full_add                                         |
 | te_combine            | make_te_combine                                          |
 """
@@ -33,8 +34,8 @@ from ..curve import te
 from ..curve.spec import CurveSpec
 from ..field import fp
 
-KERNELS = ("te_dbl_chain", "te_bucket_accumulate", "te_full_add",
-           "te_combine")
+KERNELS = ("te_dbl_chain", "te_bucket_accumulate", "te_gather_accumulate",
+           "te_full_add", "te_combine")
 
 # launches of each kernel since the last reset_launches()
 launches = dict.fromkeys(KERNELS, 0)
@@ -53,6 +54,8 @@ def _lib() -> ctypes.CDLL:
     vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.te_dbl_chain.argtypes = [vp, vp, vp, ll, ci, vp]
     lib.te_bucket_accumulate.argtypes = [vp, vp, vp, vp, vp, vp, ll, vp]
+    lib.te_gather_accumulate.argtypes = [vp, vp, vp, vp, vp, vp, vp, ll, ll,
+                                         ll, vp]
     lib.te_full_add.argtypes = [vp, vp, vp, vp, vp, ll, vp]
     lib.te_combine.argtypes = [vp, vp, vp, ci, ll, ci, vp]
     for name in KERNELS:
@@ -191,6 +194,69 @@ def te_bucket_accumulate_plain(curve: CurveSpec, rows: torch.Tensor,
         pos = (starts + r).clamp(max=rows.shape[0] - 1)
         pre = te.select_neg_pre(curve, sign[pos] != 0,
                                 te.unpack_pre(rows[pos]))
+        acc = te.select(valid, te.add_mixed(curve, acc, pre), acc)
+    return te.pack(acc)
+
+
+# ---------------------------------------------------------------------------
+# te_gather_accumulate
+# ---------------------------------------------------------------------------
+
+
+def te_gather_accumulate(curve: CurveSpec, table: torch.Tensor,
+                         perm: torch.Tensor, sign: torch.Tensor,
+                         starts: torch.Tensor, counts: torch.Tensor
+                         ) -> torch.Tensor:
+    """Bucket sums of W windows read through an index into the point
+    table.
+
+    table (n, 3, nw) holds one precomputed operand per point; perm (W, n)
+    int64 lists, per window, the point indices sorted by bucket, and sign
+    (W, n) int32 marks (in the same sorted order) the operands to
+    subtract.  Bucket b of window w is the run perm[w, starts[w, b] :
+    starts[w, b] + counts[w, b]] (starts, counts (W, nbe) int64).  Returns
+    the (W, nbe, 4, nw) extended sums, each starting from the identity."""
+    _check("table", table, _pt_tail(curve, 3))
+    if table.dim() != 3:
+        raise ValueError(f"table: expected (n, 3, nw), got "
+                         f"{tuple(table.shape)}")
+    if perm.dim() != 2 or starts.dim() != 2:
+        raise ValueError(f"perm, starts: expected (W, n) and (W, nbe), got "
+                         f"{tuple(perm.shape)} and {tuple(starts.shape)}")
+    n_win, nbe = starts.shape
+    _check("perm", perm, (n_win, table.shape[0]), torch.int64)
+    _check("sign", sign, tuple(perm.shape))
+    _check("starts", starts, (n_win, nbe), torch.int64)
+    _check("counts", counts, (n_win, nbe), torch.int64)
+    if not _on_card(table, perm, sign, starts, counts):
+        return te_gather_accumulate_plain(curve, table, perm, sign, starts,
+                                          counts)
+    out = torch.empty((n_win, nbe, *_pt_tail(curve)), dtype=torch.int32,
+                      device=table.device)
+    rc = _lib().te_gather_accumulate(
+        device_params(curve, table.device).data_ptr(), table.data_ptr(),
+        perm.data_ptr(), sign.data_ptr(), starts.data_ptr(),
+        counts.data_ptr(), out.data_ptr(), table.shape[0], nbe,
+        n_win * nbe, _stream(table))
+    _launch("te_gather_accumulate", rc)
+    return out
+
+
+def te_gather_accumulate_plain(curve: CurveSpec, table: torch.Tensor,
+                               perm: torch.Tensor, sign: torch.Tensor,
+                               starts: torch.Tensor, counts: torch.Tensor
+                               ) -> torch.Tensor:
+    """Rank-by-rank over all W * nbe bucket lanes, as
+    te_bucket_accumulate_plain, with each rank's rows gathered through
+    perm."""
+    n_win, nbe = starts.shape
+    acc = te.identity(curve, (n_win, nbe), table.device)
+    depth = int(counts.max()) if counts.numel() else 0
+    for r in range(depth):
+        valid = r < counts
+        pos = (starts + r).clamp(max=perm.shape[1] - 1)
+        pre = te.select_neg_pre(curve, sign.gather(1, pos) != 0,
+                                te.unpack_pre(table[perm.gather(1, pos)]))
         acc = te.select(valid, te.add_mixed(curve, acc, pre), acc)
     return te.pack(acc)
 

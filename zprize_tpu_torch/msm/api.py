@@ -22,12 +22,17 @@ from . import pippenger
 
 @dataclasses.dataclass
 class MsmContext:
-    """Device-resident preprocessed points: `prepared` holds the TE
-    window-collapse table built once at init (untimed); its window width
-    is `prepared.c`."""
+    """Device-resident preprocessed points: `prepared` holds the TE point
+    table built once at init (untimed); its window width is
+    `prepared.c`.  The MSM reads only the points' infinity flags after
+    init, so `points` keeps those and empty coordinate planes (at 2^26
+    the coordinates would hold 6.4 GB).  `window_budget` bounds the bytes
+    of the m = 1 route's windows in flight (None: from the card's free
+    memory)."""
     curve: CurveSpec
     points: sw.Affine
     prepared: pippenger.PreparedTe
+    window_budget: int | None = None
 
     @property
     def device(self) -> torch.device:
@@ -36,9 +41,12 @@ class MsmContext:
 
 def multi_scalar_mult_init(curve: CurveSpec, points_xy,
                            window_bits: int | None = None,
-                           device=None) -> MsmContext:
+                           device=None, collapse: bool = True,
+                           window_budget: int | None = None) -> MsmContext:
     """points_xy: python int pairs [(x, y) | None], or an `sw.Affine` of
-    Montgomery word planes.  Builds the table once, on `device`."""
+    Montgomery word planes.  Builds the table once, on `device`, with the
+    plan of `pippenger.prepare_points` (m = 1 from 2^24 points, or with
+    `collapse=False`)."""
     dev = resolve_device(device)
     if isinstance(points_xy, sw.Affine):
         aff = sw.Affine(*(a.to(dev) for a in points_xy))
@@ -50,18 +58,32 @@ def multi_scalar_mult_init(curve: CurveSpec, points_xy,
             fp.from_ints(f, [1 if p is None else p[1] for p in points_xy],
                          dev),
             torch.tensor([p is None for p in points_xy], device=dev))
-    prepared = pippenger.prepare_points(curve, aff, window_bits)
-    return MsmContext(curve, aff, prepared)
+    prepared = pippenger.prepare_points(curve, aff, window_bits,
+                                        collapse=collapse)
+    empty = aff.x.new_empty((0, aff.x.shape[-1]))
+    return MsmContext(curve, sw.Affine(empty, empty, aff.inf), prepared,
+                      window_budget)
+
+
+def _limbs(batch) -> torch.Tensor:
+    """One (n, L) scalar batch as a tensor: a numpy uint16 batch (the
+    compact form, limbs < 2^15) as its int16 view, without a copy; other
+    numpy batches as int32."""
+    if not isinstance(batch, np.ndarray):
+        return batch
+    if batch.dtype == np.uint16:
+        return torch.from_numpy(np.ascontiguousarray(batch).view(np.int16))
+    return torch.from_numpy(batch.astype(np.int32))
 
 
 def multi_scalar_mult(ctx: MsmContext, scalars) -> list[sw.Point]:
     """Batched MSM: scalars (batch, n, L) or (n, L) canonical base-2^15
     limb planes (torch or numpy, e.g. the uint16 compact form); returns one
-    SW projective result per batch."""
-    if isinstance(scalars, np.ndarray):
-        scalars = torch.from_numpy(scalars.astype(np.int32))
-    scalars = scalars.to(ctx.device)
-    if scalars.dim() == 2:
+    SW projective result per batch.  Each batch moves to the card on its
+    own, just before its MSM."""
+    if scalars.ndim == 2:
         scalars = scalars[None]
-    return [pippenger.msm(ctx.curve, ctx.points, s, prepared=ctx.prepared)
+    return [pippenger.msm(ctx.curve, ctx.points, _limbs(s).to(ctx.device),
+                          prepared=ctx.prepared,
+                          window_budget=ctx.window_budget)
             for s in scalars]

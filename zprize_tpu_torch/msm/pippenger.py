@@ -1,24 +1,36 @@
-"""Pippenger bucket-method MSM over BLS12-377 G1 in twisted-Edwards form,
-on the collapsed, bucket-sorted route.
+"""Pippenger bucket-method MSM over BLS12-377 G1 in twisted-Edwards form.
 
-The route (the reference package's default below 2^23 points):
+Two routes, chosen by the plan (c, g, m) of `plan_collapse` (the
+reference package's choice: m > 1 below 2^23 points, m = 1 from 2^24), or
+m = 1 when the caller asks for no collapse.
 
-1. plan (c, g, m) with `plan_collapse`;
-2. init: the window-collapse table of m multiples 2^(c*g*j)·P
+The collapsed route (m > 1):
+
+1. init: the window-collapse table of m multiples 2^(c*g*j)·P
    (`te_path.prepare_points_collapsed`, kernel `te_dbl_chain`);
-3. MSB-negated signed c-bit digits, folded from m*g windows onto g bucket
+2. MSB-negated signed c-bit digits, folded from m*g windows onto g bucket
    sets (`signed_digits`);
-4. per bucket set, the table rows sorted by |digit| (`torch.sort`, bucket
+3. per bucket set, the table rows sorted by |digit| (`torch.sort`, bucket
    runs by `torch.searchsorted`) and summed per bucket (kernel
-   `te_bucket_accumulate`);
-5. sum_b b*B_b per set (triangle merge, or bit-decomposed below 1024
-   buckets; kernels `te_full_add` and `te_combine`);
-6. the window combine (kernel `te_combine`) and the exact TE->SW
-   conversion of the single result on the host.
+   `te_bucket_accumulate`).
+
+The m = 1 route (`window_sums_m1`):
+
+1. init: one operand per point (`te_path.prepare_points`, in blocks);
+2. windows in chunks, as many in flight as the memory plan allows
+   (`windows_in_flight`): signed digits of the chunk with the carry
+   riding between chunks (`signed_digits_range`), a sort of each window
+   by |digit| (`sort_windows`), and the bucket sums read through the sort
+   permutation straight from the table (kernel `te_gather_accumulate`).
+
+Both then take sum_b b*B_b per window (triangle merge, or bit-decomposed
+below 1024 buckets; kernels `te_full_add` and `te_combine`), the window
+combine (kernel `te_combine`) and the exact TE->SW conversion of the
+single result on the host.
 
 Routes not in this port yet raise NotImplementedError naming their queue
-in ROADMAP.md: the m = 1 routes (no collapse; the 2^24+ scale regime),
-the short-Weierstrass route (BLS12-381 G1) and the jittable batch forms.
+in ROADMAP.md: the short-Weierstrass route (BLS12-381 G1) and the
+jittable batch forms.
 """
 
 from __future__ import annotations
@@ -33,11 +45,8 @@ from ..curve.spec import CurveSpec
 from ..field import fp
 from ..field.spec import BASE_BITS
 from . import te_path
-from .accum_kernel import te_bucket_accumulate
+from .accum_kernel import te_bucket_accumulate, te_gather_accumulate
 
-_M1_ROUTE = ("the m = 1 MSM routes (no window collapse: the streamed and "
-             "gather accumulate) are not ported yet: ROADMAP.md Queue 1, "
-             "item 5")
 _SW_ROUTE = ("the short-Weierstrass MSM route is not ported yet: "
              "ROADMAP.md Queue 1, item 11")
 
@@ -61,24 +70,39 @@ def signed_digits(curve: CurveSpec, c: int, n_win: int,
     (n_win, n) int64 signed digits in [-2^(c-1), 2^(c-1)).  A window whose
     value reaches 2^(c-1) is negated and carries one into the next; the top
     window absorbs the last carry."""
-    s = scalars.to(torch.int64)
-    starts = torch.arange(n_win, device=s.device) * c
-    i0, sh = starts // BASE_BITS, starts % BASE_BITS
-    need = (n_win - 1) * c // BASE_BITS + 3
-    if s.shape[-1] < need:
-        s = torch.nn.functional.pad(s, (0, need - s.shape[-1]))
-    word = s[:, i0] | (s[:, i0 + 1] << BASE_BITS) | (s[:, i0 + 2]
-                                                      << 2 * BASE_BITS)
-    raw = ((word >> sh) & ((1 << c) - 1)).t()              # (n_win, n)
+    carry = torch.zeros(scalars.shape[0], dtype=torch.int32,
+                        device=scalars.device)
+    digits, _ = signed_digits_range(curve, c, 0, n_win, scalars.t(), carry)
+    return digits.to(torch.int64)
+
+
+def signed_digits_range(curve: CurveSpec, c: int, w0: int, w1: int,
+                        limbs: torch.Tensor, carry: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Windows w0..w1-1 of the signed digits of limb-major scalars
+    (L, n) (base 2^15, limbs < 2^15, any integer dtype, e.g. the int16
+    view of the compact form), resuming from `carry` (n,) int32, the carry
+    out of window w0 - 1 (zeros for w0 = 0).  Returns the (w1 - w0, n)
+    int32 digits and the carry out of window w1 - 1: the carry chain is
+    sequential in the window, so a chunk of windows needs only that one
+    vector from the chunks before it."""
+    n_limbs, n = limbs.shape
     half = 1 << (c - 1)
-    digits = torch.empty_like(raw)
-    carry = torch.zeros_like(raw[0])
-    for w in range(n_win):
-        r = raw[w] + carry
-        over = r >= half
-        digits[w] = torch.where(over, r - (1 << c), r)
-        carry = over.to(torch.int64)
-    return digits
+    zero = torch.zeros(n, dtype=torch.int64, device=limbs.device)
+
+    def limb(i):
+        return limbs[i].to(torch.int64) if i < n_limbs else zero
+
+    digits = torch.empty((w1 - w0, n), dtype=torch.int32, device=limbs.device)
+    for k, w in enumerate(range(w0, w1)):
+        i0, sh = divmod(w * c, BASE_BITS)
+        word = (limb(i0) | (limb(i0 + 1) << BASE_BITS)
+                | (limb(i0 + 2) << 2 * BASE_BITS))
+        raw = ((word >> sh) & ((1 << c) - 1)).to(torch.int32) + carry
+        over = raw >= half
+        digits[k] = torch.where(over, raw - (1 << c), raw)
+        carry = over.to(torch.int32)
+    return digits, carry
 
 
 def scalar_limbs(curve: CurveSpec, words: torch.Tensor) -> torch.Tensor:
@@ -153,31 +177,42 @@ def prepare_points(curve: CurveSpec, points: sw.Affine, c: int | None = None,
                    budget_bytes: int | None = None,
                    collapse: bool = True) -> PreparedTe:
     """Preprocess a fixed point set for repeated MSMs (the untimed init):
-    TE conversion and the window-collapse table."""
+    TE conversion and the point table.  With `collapse` the plan of
+    `plan_collapse` decides; without, c = `c` or `default_window_bits(n)`
+    and m = 1 (the reference's ZPRIZE_PRECOMPUTE=0)."""
     require_te(curve)
-    if not collapse:
-        raise NotImplementedError(_M1_ROUTE)
     n = points.x.shape[0]
-    c, g, m = plan_collapse(curve, n, c, budget_bytes)
+    if collapse:
+        c, g, m = plan_collapse(curve, n, c, budget_bytes)
+    else:
+        c = c or default_window_bits(n)
+        g, m = num_windows(curve, c), 1
     if m == 1:
-        raise NotImplementedError(f"plan (c={c}, g={g}, m=1): {_M1_ROUTE}")
-    table = te_path.prepare_points_collapsed(
-        curve, points.x, points.y, points.inf, c * g, m)
+        table = te_path.prepare_points(curve, points.x, points.y, points.inf)
+    else:
+        table = te_path.prepare_points_collapsed(
+            curve, points.x, points.y, points.inf, c * g, m)
     return PreparedTe(table, c, g, m, n)
 
 
 def msm(curve: CurveSpec, points: sw.Affine, scalars: torch.Tensor,
-        c: int | None = None, prepared: PreparedTe | None = None
-        ) -> sw.Point:
+        c: int | None = None, prepared: PreparedTe | None = None,
+        window_budget: int | None = None) -> sw.Point:
     """sum_i scalars[i] * points[i] for canonical scalar limb planes
-    (n, L) (base 2^15, limbs < 2^15: the benchmark's compact form).
-    Only points.inf is read when `prepared` is given."""
+    (n, L) (base 2^15, limbs < 2^15: the benchmark's compact form, also
+    as its int16 view).  Only points.inf is read when `prepared` is given.
+    `window_budget` bounds the bytes the m = 1 route's windows in flight
+    may hold (default: from the card's free memory; no bound on the CPU);
+    the result does not depend on it."""
     require_te(curve)
     if prepared is None:
         prepared = prepare_points(curve, points, c)
     if prepared.m == 1:
-        raise NotImplementedError(_M1_ROUTE)
-    combined = _msm_te_sorted(curve, prepared, points.inf, scalars)
+        sums = window_sums_m1(curve, prepared, points.inf, scalars,
+                              window_budget)
+        combined = te_path.combine_windows_te(curve, prepared.c, sums)
+    else:
+        combined = _msm_te_sorted(curve, prepared, points.inf, scalars)
     return _te_result_host(curve, combined)
 
 
@@ -218,6 +253,109 @@ def _msm_te_sorted(curve: CurveSpec, prep: PreparedTe, inf: torch.Tensor,
     else:
         merged = te_path.merge_buckets_te(curve, c, sums)
     return te_path.combine_windows_te(curve, c, merged)
+
+
+def window_groups(curve: CurveSpec, c: int, n_win: int, full_nbe: int
+                  ) -> dict[int, list[int]]:
+    """Windows grouped by the bucket count their digits need: a window
+    with fewer raw bits (the top carry window) gets a narrower bucket
+    range.  Same grouping as the reference package."""
+    scalar_bits = curve.scalar.p.bit_length()
+    groups: dict[int, list[int]] = {}
+    for w in range(n_win):
+        raw_bits = min(c, max(0, scalar_bits - w * c))
+        dmax = min(full_nbe, (1 << raw_bits) + 1)  # |digit| bound
+        nbe = min(full_nbe, max(4, 1 << (dmax - 1).bit_length()))
+        groups.setdefault(nbe, []).append(w)
+    return groups
+
+
+def sort_windows(digits: torch.Tensor, nbe: int):
+    """The bucket sort of W windows of signed digits (W, n) int32 over
+    buckets 1..nbe: (perm (W, n) int64, the indices sorted by |digit|;
+    sign (W, n) int32, 1 where the sorted digit is negative; starts and
+    counts (W, nbe) int64, bucket b's run).  One sort per window, of the
+    int32 key 2|d| + (d < 0): its sorted keys carry the sign, and bucket
+    b's run lies between the keys 2b and 2b + 2."""
+    n_win, n = digits.shape
+    dev = digits.device
+    perm = torch.empty((n_win, n), dtype=torch.int64, device=dev)
+    sign = torch.empty((n_win, n), dtype=torch.int32, device=dev)
+    edges = 2 * torch.arange(1, nbe + 2, dtype=torch.int32, device=dev)
+    bounds = []
+    for w in range(n_win):
+        d = digits[w]
+        key, perm[w] = torch.sort((d.abs() << 1) | (d < 0).to(torch.int32))
+        sign[w] = key & 1
+        bounds.append(torch.searchsorted(key, edges))
+        del key
+    bounds = torch.stack(bounds)
+    starts = bounds[:, :-1].contiguous()
+    return perm, sign, starts, (bounds[:, 1:] - starts).contiguous()
+
+
+def window_bytes(n: int, nbe: int) -> int:
+    """Device bytes one window in flight holds in `window_sums_m1`: its
+    digits, sort permutation and signs (16 bytes a point) and its bucket
+    sums."""
+    return 16 * n + 192 * nbe
+
+
+def windows_in_flight(n: int, nbe: int, n_windows: int, device: torch.device,
+                      budget: int | None = None) -> int:
+    """How many windows of n points `window_sums_m1` handles at once: all
+    of them if the budget allows, at least one.  The budget is `budget`
+    bytes, or on the card nine tenths of what is free (`mem_get_info`,
+    plus what PyTorch's allocator holds unused) less the transient of one
+    window's sort (40 bytes a point: key, sorted key, permutation and the
+    sort's buffers); on the CPU with no budget, all windows."""
+    if budget is None:
+        if device.type != "cuda":
+            return n_windows
+        free, _ = torch.cuda.mem_get_info(device)
+        free += (torch.cuda.memory_reserved(device)
+                 - torch.cuda.memory_allocated(device))
+        budget = int(0.9 * free) - 40 * n
+    return max(1, min(n_windows, budget // window_bytes(n, nbe)))
+
+
+def window_sums_m1(curve: CurveSpec, prep: PreparedTe, inf: torch.Tensor,
+                   scalars: torch.Tensor, budget: int | None = None
+                   ) -> torch.Tensor:
+    """The m = 1 route up to the window combine: per window group, per
+    chunk of windows in flight (`windows_in_flight` under `budget`),
+    digits -> bucket sort -> te_gather_accumulate -> merge.  Returns the
+    (n_win, 4, nw) window sums sum_b b*B_b on the device."""
+    c, n = prep.c, prep.n
+    dev = prep.table.device
+    if tuple(scalars.shape[:1]) != (n,) or tuple(inf.shape) != (n,):
+        raise ValueError(f"expected {n} scalars and infinity flags, got "
+                         f"{tuple(scalars.shape)} and {tuple(inf.shape)}")
+    n_win = num_windows(curve, c)
+    limbs = scalars.to(dev).t().contiguous()                    # (L, n)
+    inf = inf.to(dev)
+    carry = torch.zeros(n, dtype=torch.int32, device=dev)
+    window_sums = [None] * n_win
+    # groups in ascending window order: the carry chain crosses them
+    for nbe, ws in sorted(window_groups(curve, c, n_win, 1 << (c - 1)
+                                        ).items(), key=lambda kv: kv[1][0]):
+        chunk = windows_in_flight(n, nbe, len(ws), dev, budget)
+        for lo in range(ws[0], ws[-1] + 1, chunk):
+            hi = min(ws[-1] + 1, lo + chunk)
+            digits, carry = signed_digits_range(curve, c, lo, hi, limbs,
+                                                carry)
+            digits.masked_fill_(inf, 0)
+            runs = sort_windows(digits, nbe)
+            del digits
+            sums = te_gather_accumulate(curve, prep.table, *runs)
+            del runs
+            if te_path.triangle_split(hi - lo, nbe) is not None:
+                merged = te_path.merge_buckets_te_triangle(curve, c, sums)
+            else:
+                merged = te_path.merge_buckets_te(curve, c, sums)
+            del sums
+            window_sums[lo:hi] = merged
+    return torch.stack(window_sums)
 
 
 def _te_result_host(curve: CurveSpec, combined: torch.Tensor) -> sw.Point:

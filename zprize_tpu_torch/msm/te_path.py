@@ -1,5 +1,6 @@
-"""Twisted-Edwards MSM stages around the kernels: the window-collapse
-table, the bucket merges and the window combine.
+"""Twisted-Edwards MSM stages around the kernels: the point tables (one
+operand per point, or the window-collapse table), the bucket merges and
+the window combine.
 
 Points travel as packed ``(..., 4, n_words)`` int32 tensors (see
 ``curve/te.py``); every group operation goes through the kernel wrappers
@@ -7,7 +8,8 @@ of ``accum_kernel.py``, so on the card each stage is a handful of kernel
 launches and on the CPU it runs the plain versions.
 
 The table is row-major ``(m*n, 3, n_words)``: row j*n + i is the
-precomputed operand (Y+X, Y-X, 2d·X·Y) of 2^(shift*j)·P_i.
+precomputed operand (Y+X, Y-X, 2d·X·Y) of 2^(shift*j)·P_i (m = 1: row i
+is P_i's operand).
 """
 
 from __future__ import annotations
@@ -18,6 +20,40 @@ from ..curve import te
 from ..curve.spec import CurveSpec
 from ..field import fp
 from .accum_kernel import te_combine, te_dbl_chain, te_full_add
+
+
+# points per block of the m = 1 table build: the plain engine's
+# temporaries are a few KB a lane, so a block holds a few GB at most
+_PREP_BLOCK = 1 << 20
+
+
+def _te_affine(curve: CurveSpec, x, y, inf):
+    """SW affine planes -> TE affine planes; raises ValueError if a point
+    has no TE image."""
+    tx, ty, bad = te.sw_to_te(curve, x, y, inf)
+    if bool(bad.any()):
+        raise ValueError(
+            "input contains exceptional points with no twisted-Edwards "
+            "image (the short-Weierstrass route is not ported yet: "
+            "ROADMAP.md Queue 1, item 11)")
+    return tx, ty
+
+
+def prepare_points(curve: CurveSpec, x, y, inf) -> torch.Tensor:
+    """SW affine planes (n, nw) -> the m = 1 table (n, 3, nw), one
+    operand per point.  Built `_PREP_BLOCK` points at a time (conversion
+    with its batched inversion, then the operand), so the plain engine
+    never holds temporaries for every point at once.  Raises ValueError
+    if a point has no TE image."""
+    f = curve.field
+    n = x.shape[0]
+    table = torch.empty((n, 3, fp.n_words(f)), dtype=torch.int32,
+                        device=x.device)
+    for lo in range(0, n, _PREP_BLOCK):
+        hi = min(n, lo + _PREP_BLOCK)
+        tx, ty = _te_affine(curve, x[lo:hi], y[lo:hi], inf[lo:hi])
+        table[lo:hi] = te.pack(te.precompute(curve, tx, ty))
+    return table
 
 
 def prepare_points_collapsed(curve: CurveSpec, x, y, inf, shift: int,
@@ -31,12 +67,7 @@ def prepare_points_collapsed(curve: CurveSpec, x, y, inf, shift: int,
     one batched inversion normalises all m*n points to affine.  Raises
     ValueError, before any doubling, if a point has no TE image."""
     f = curve.field
-    tx, ty, bad = te.sw_to_te(curve, x, y, inf)
-    if bool(bad.any()):
-        raise ValueError(
-            "input contains exceptional points with no twisted-Edwards "
-            "image (the short-Weierstrass route is not ported yet: "
-            "ROADMAP.md Queue 1, item 11)")
+    tx, ty = _te_affine(curve, x, y, inf)
     one = fp.ones(f, tx.shape[:-1], tx.device)
     blocks = [te.pack(te.TePoint(tx, ty, one, fp.mul(f, tx, ty)))]
     for _ in range(m - 1):

@@ -20,6 +20,7 @@ import torch
 
 from ..field import fp
 from ..field.spec import GOLDILOCKS, FieldSpec
+from ..utils.device import resolve_device
 
 # Reference 2^32-th root for Goldilocks (cosic testvectors.py, N=2**32).
 _GOLDILOCKS_W32 = 11724716146725638212
@@ -71,15 +72,16 @@ def bitrev_perm(log_n: int, device="cpu") -> torch.Tensor:
 
 class Domain:
     """Radix-2 evaluation domain of size 2^log_n over `spec`, with its
-    twiddle tables on `device`: `pows` = w^0 .. w^(n/2 - 1) and `pows_inv`
-    the same for w^-1 (one entry for n = 1).  Built once per
+    twiddle tables on `device` (the card unless the caller asks for the
+    CPU): `pows` = w^0 .. w^(n/2 - 1) and `pows_inv` the same for w^-1 (one
+    entry for n = 1).  Built once per
     (field, size, device) and reused: the analog of the reference's cached
     twiddles (`ntt-cuda/ntt_parameters/ntt_twiddles.cu`)."""
 
     _cache: dict = {}
 
-    def __new__(cls, spec: FieldSpec, log_n: int, device="cpu"):
-        device = torch.device(device)
+    def __new__(cls, spec: FieldSpec, log_n: int, device=None):
+        device = resolve_device(device)
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         key = (spec.name, log_n, device)

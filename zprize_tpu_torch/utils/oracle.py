@@ -9,6 +9,7 @@ multiplication: sum_i s_i·P_i = (sum_i s_i·(i+1) mod r)·G.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..curve.spec import CurveSpec
 
@@ -89,12 +90,47 @@ def scalar_batch_np(curve: CurveSpec, rng_np, n: int) -> np.ndarray:
     return out
 
 
+def scalar_batch_torch(curve: CurveSpec, n: int, generator: torch.Generator
+                       ) -> torch.Tensor:
+    """A seeded canonical scalar batch made on the generator's device: the
+    compact form of `scalar_batch_np` (uniform in [0, order) by rejection,
+    limbs < 2^15) as its (n, L) int16 view, for batches too large to draw
+    on the host in good time (2^26 x 17 limbs).  Rows are compared with
+    the order from the top limb down, reading a lower limb only for the
+    rows that tie on every limb above it.  Other draws than
+    `scalar_batch_np`'s for the same seed."""
+    L = curve.scalar.n_limbs
+    order = curve.order
+    r_limbs = [(order >> (15 * k)) & 0x7FFF for k in range(L)]
+    top_bits = order.bit_length() - 15 * (L - 1)
+    dev = generator.device
+    out = torch.empty((n, L), dtype=torch.int16, device=dev)
+    todo = torch.arange(n, device=dev)
+    while todo.numel():
+        cand = torch.randint(0, 1 << 15, (todo.numel(), L),
+                             generator=generator, dtype=torch.int16,
+                             device=dev)
+        cand[:, L - 1] &= (1 << top_bits) - 1
+        lt = cand[:, L - 1] < r_limbs[L - 1]
+        tie = torch.nonzero(cand[:, L - 1] == r_limbs[L - 1])[:, 0]
+        for j in range(L - 2, -1, -1):
+            if not tie.numel():
+                break
+            col = cand[tie, j]
+            lt[tie[col < r_limbs[j]]] = True
+            tie = tie[col == r_limbs[j]]
+        out[todo] = cand
+        todo = todo[~lt]
+    return out
+
+
 def oracle_agg(curve: CurveSpec, batch_u16: np.ndarray, n_base: int) -> list:
     """Per-base-point scalar sums (mod order) for a point set made of
     `n_base` base points tiled n // n_base times."""
     n, L = batch_u16.shape
     reps = n // n_base
-    sums = batch_u16.reshape(reps, n_base, L).astype(np.int64).sum(axis=0)
+    # summed in int64 without an int64 copy of the batch (9 GB at 2^26)
+    sums = batch_u16.reshape(reps, n_base, L).sum(axis=0, dtype=np.int64)
     assert reps < (1 << 48)  # int64 headroom: limb < 2^15, sum < reps*2^15
     return [sum(int(sums[i, k]) << (15 * k) for k in range(L)) % curve.order
             for i in range(n_base)]
