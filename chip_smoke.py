@@ -15,6 +15,13 @@ In order, each phase raising on failure (so the exit code is non-zero):
 3b. holds the Fr NTT kernel against its plain version, bit for bit,
    forward and inverse, at n = 2, 8, 2^9, 2^10, 2^11 and 2^13 with B = 1 and
    3 rows (random inputs holding 0, 1 and p-1), and checks intt(ntt(a)) == a;
+3c. holds the Goldilocks NTT kernel gl_ntt against its plain version, bit
+   for bit, forward and inverse (scaled by n^-1), at n = 2, 8, 2^9 (the
+   range of the TPU's fused kernel) and 2^10, 2^12 (its stage-grid kernel)
+   with B = 1 and 3 columns, and 4096 at 2^12, on random canonical values
+   holding 0, 1, q-1 and 2^32-1; a column pass with the two-level step
+   twiddle; intt(ntt(x)) == x; and the plain version against a python-int
+   DFT at 2^3 and 2^9;
 4. drives the MSM main path through the user entry points at the
    benchmark's default size: n = 2^18 BLS12-377 G1 points, 1024 distinct
    base points (i+1)·G tiled, `multi_scalar_mult_init`, then a warm-up and
@@ -51,9 +58,24 @@ In order, each phase raising on failure (so the exit code is non-zero):
    Fr NTT's row at the path's shapes (2^18 forward, B = 1; 2^16 inverse,
    B = 3).
 
+8. (run right after 3c, before any other profile) drives the Goldilocks
+   NTT at bench.py's size (`BENCH_METRIC=ntt` of the reference: 2^24
+   points, four-step 2^12 x 2^12, `ntt_fourstep_packed`): bench.py's
+   input (random.Random(0), 4096 draws tiled 4096 times) checked at every
+   one of its 2^24 outputs against the closed form of a periodic input
+   (zero unless 4096 | k, else 4096 times a python-int 4096-point
+   transform); a random 2^24 input against the plain radix-2 stage loop
+   on the card, bit for bit, and back through the inverse; radix2.ntt on
+   a Goldilocks domain of 2^10 (Montgomery words) against python ints;
+   the metric, ms per forward NTT over 8 chained dependent transforms, 5
+   iterations (CUDA events), and the inverse's; a profiled chain of 8
+   NTTs; gl_ntt's row at its main-path shapes; and the path must have
+   launched gl_ntt and no MSM or Fr kernel.
+
 Prints one JSON line for the 2^18 MSM path, one for the 2^26 path, one
-for the PLONK path, one {"kernels": [...]} line, the total time, the
-nvidia-smi line, and last {"ok": true, "device": {...}}.
+for the PLONK path, one for the Goldilocks NTT, one {"kernels": [...]}
+line, the total time, the nvidia-smi line, and last {"ok": true,
+"device": {...}}.
 """
 
 import json
@@ -86,6 +108,13 @@ IMAD_PER_MULMOD = 2 * 288 + 12
 IMAD_PER_MULMOD_FR = 2 * 128 + 8
 MULMODS = {"madd": 7, "add": 9, "dbl": 8}
 NTT_SIZES = (1, 3, 9, 10, 11, 13)          # log2 n of the phase-3b checks
+GL_SIZES = (1, 3, 9, 10, 12)               # log2 n of the phase-3c checks
+GL_LOG1, GL_LOG2 = 12, 12                  # bench.py's 2^24 NTT, four-step
+GL_PERIOD = 4096                           # bench.py's input repeats
+GL_CHAIN, GL_ITERS = 8, 5                  # BENCH_NTT_CHAIN, BENCH_ITERS
+# a Goldilocks mulmod (csrc/ntt_gl.cu): one 64x64->128 product, four
+# 32x32->64 wide products at two IMAD slots each
+IMAD_PER_MULMOD_GL = 8
 PLONK_PROOFS, PLONK_HEIGHT = 16, 8         # bench.py's plonk workload
 PLONK_TIMED = 2
 # the MSM kernels of the collapsed route (the 2^18 MSM and the PLONK
@@ -99,7 +128,8 @@ KERNEL_SYMBOLS = {"te_dbl_chain": ("k_dbl_chain",),
                   "te_gather_accumulate": ("k_gather_accumulate",),
                   "te_full_add": ("k_full_add",),
                   "te_combine": ("k_combine",),
-                  "fr_ntt": ("k_ntt_tile", "k_ntt_stage")}
+                  "fr_ntt": ("k_ntt_tile", "k_ntt_stage"),
+                  "gl_ntt": ("k_gl_ntt",)}
 
 
 def log(msg):
@@ -444,26 +474,49 @@ def skewed_run(curve, dev):
             "verified": 2}
 
 
-def profile_call(label, fn):
+def port_launches():
+    """Every port kernel's launch count so far."""
+    from zprize_tpu_torch.msm import accum_kernel as ak
+    from zprize_tpu_torch.ntt import fr_kernel, gl_kernel
+    return {**ak.launches, **fr_kernel.launches, **gl_kernel.launches}
+
+
+def profile_call(label, fn, attempts=3):
     """One call of fn under torch.profiler (after one unprofiled call):
     device time by kernel and the device busy share of the call's wall
-    time."""
+    time.  The trace can miss device events (seen late in a run, after
+    the large profiles: none, or half, of a short window's kernels), so
+    the port's kernels in the trace are held against their launch counts
+    in the same window; a window that falls short is profiled again, up
+    to `attempts` times, and the result says whether it was complete."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.time() - t0) * 1e3
-    # device-side events only: an aten op's own entry would count its
-    # kernels' time a second time
-    by_kernel = [(e.self_device_time_total / 1e3, e.count, e.key)
-                 for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA
-                 and e.self_device_time_total > 0]
+    for attempt in range(1, attempts + 1):
+        before = port_launches()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.time() - t0) * 1e3
+        launched = {k: v - before[k] for k, v in port_launches().items()
+                    if v > before[k]}
+        # device-side events only: an aten op's own entry would count its
+        # kernels' time a second time
+        by_kernel = [(e.self_device_time_total / 1e3, e.count, e.key)
+                     for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA
+                     and e.self_device_time_total > 0]
+        # a wrapper's launch runs at least one kernel of its symbols
+        traced = {name: sum(n for _, n, k in by_kernel
+                            if any(s in k for s in KERNEL_SYMBOLS[name]))
+                  for name in launched}
+        complete = bool(by_kernel) and all(
+            traced[name] >= launched[name] for name in launched)
+        if complete:
+            break
     by_kernel.sort(reverse=True)
     busy = sum(ms for ms, _, _ in by_kernel)
     # device ms of the port's kernels (by their CUDA symbols); the rest is
@@ -471,16 +524,19 @@ def profile_call(label, fn):
     ports = {name: sum(ms for ms, _, k in by_kernel
                        if any(s in k for s in symbols))
              for name, symbols in KERNEL_SYMBOLS.items()}
-    out = {"profile_wall_ms": wall_ms,
+    out = {"profile_wall_ms": wall_ms, "attempts": attempt,
+           "complete": complete, "launched": launched, "traced": traced,
            "device_busy_ms": busy if by_kernel else "not measured",
-           "device_idle_share": (1 - busy / wall_ms) if by_kernel
+           "device_idle_share": (1 - busy / wall_ms) if complete
            else "not measured",
            "port_kernels_ms": ports,
            "torch_ops_ms": busy - sum(ports.values()),
            "by_kernel": [{"name": k[:90], "ms": ms, "calls": n}
                          for ms, n, k in by_kernel[:14]]}
     log(f"profiled {label}: wall {wall_ms:.3f} ms, device busy "
-        f"{busy:.3f} ms, of it the port's kernels {ports}")
+        f"{busy:.3f} ms, of it the port's kernels {ports}; launched "
+        f"{launched}, traced {traced}, attempt {attempt}"
+        f"{'' if complete else ', INCOMPLETE trace'}")
     return out
 
 
@@ -663,6 +719,71 @@ def check_ntt(dev):
                                      f"B = {rows}")
 
 
+def gl_random(shape, gen, dev):
+    """Canonical Goldilocks values from a seeded generator, with 0, 1, q-1
+    and 2^32-1 in the first places."""
+    from zprize_tpu_torch.ntt import gl_ops
+    x = gl_ops.gl_canon(torch.randint(-2 ** 63, 2 ** 63 - 1, shape,
+                                      generator=gen, dtype=torch.int64,
+                                      device=dev))
+    edges = gl_ops.from_ints([0, 1, gl_ops.Q - 1, (1 << 32) - 1], dev)
+    flat = x.view(-1)
+    k = min(4, flat.numel())
+    flat[:k] = edges[:k]
+    return x
+
+
+def check_gl_ntt(dev):
+    """Phase 3c: gl_ntt == its plain version, forward and inverse, at
+    every size of GL_SIZES with B = 1 and 3 (and 4096 at 2^12), a column
+    pass with the step twiddle, the round trip, and the plain version
+    against python ints at 2^3 and 2^9."""
+    from zprize_tpu_torch.field.spec import GOLDILOCKS
+    from zprize_tpu_torch.ntt import gl_kernel, gl_ops
+    from zprize_tpu_torch.ntt.domain import primitive_root
+    from zprize_tpu_torch.utils.oracle import dft_ints, ntt_ints
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    q = gl_ops.Q
+    cases = [(log_n, b) for log_n in GL_SIZES for b in (1, 3)]
+    cases.append((12, 4096))
+    for log_n, b in cases:
+        x = gl_random((1 << log_n, b), gen, dev)
+        errs = []
+        for inverse in (False, True):
+            scale = pow(1 << log_n, -1, q) if inverse else None
+            out = gl_kernel.gl_ntt(x, log_n, inverse, scale=scale)
+            errs.append(max_abs_err(out, gl_kernel.gl_ntt_plain(
+                x, log_n, inverse, scale=scale)))
+        back = gl_kernel.ntt_packed(
+            log_n, gl_kernel.ntt_packed(log_n, x, device=dev), True, dev)
+        torch.cuda.synchronize()
+        errs.append(int((back != x).sum()))
+        log(f"gl_ntt vs plain, n = 2^{log_n}, B = {b}: forward {errs[0]}, "
+            f"inverse {errs[1]}, round trip {errs[2]}")
+        if any(errs):
+            raise AssertionError(f"gl_ntt disagrees at 2^{log_n}, B = {b}")
+    # a column pass of a four-step level: 2^3 points, 3 x 2^10 columns,
+    # the step twiddle from both two-level tables (2^10 > 2^8 columns)
+    x = gl_random((8, 3 << 10), gen, dev)
+    for inverse in (False, True):
+        err = max_abs_err(gl_kernel.gl_ntt(x, 3, inverse, 10, 3),
+                          gl_kernel.gl_ntt_plain(x, 3, inverse, 10, 3))
+        log(f"gl_ntt with the step twiddle, 2^3 x (3 x 2^10), "
+            f"{'inverse' if inverse else 'forward'}: {err}")
+        if err:
+            raise AssertionError("gl_ntt disagrees with the step twiddle")
+    for log_n in (3, 9):
+        x = gl_random((1 << log_n, 1), gen, dev)
+        vals = gl_ops.to_ints(x)
+        w = primitive_root(GOLDILOCKS, log_n)
+        expect = dft_ints(vals, w, q)
+        if (gl_ops.to_ints(gl_kernel.gl_ntt_plain(x, log_n)) != expect
+                or ntt_ints(vals, w, q) != expect):
+            raise AssertionError(f"gl_ntt_plain or ntt_ints != the python "
+                                 f"DFT at 2^{log_n}")
+        log(f"gl_ntt_plain and ntt_ints == python DFT at 2^{log_n}")
+
+
 def plonk_witness(cfg, fr, n_proofs, height, rng, dev):
     """bench.py's membership workload: the circuit, the Poseidon Merkle
     tree over seeded leaves (on the card), and the full assignment."""
@@ -831,6 +952,201 @@ def ntt_row(pk, launches, dev):
             "library_ms": None, "shapes": shapes}
 
 
+def gl_bound(log_n, b, step_log=0, scale=False):
+    """(mulmods, bytes) of one gl_ntt call on (2^log_n, b): the butterflies
+    of stages 2..log_n, one or two step-twiddle products (two-level tables
+    above 2^8 columns) and the scale per element; each input and output
+    read or written once, the power table and the step tables once."""
+    n = 1 << log_n
+    split = min(step_log, 8)
+    step_mul = (2 if step_log > split else 1) if step_log else 0
+    mulmods = b * (n // 2 * max(0, log_n - 1) + n * (step_mul + scale))
+    tables = n * ((1 << split) + (1 << (step_log - split))) if step_log else 0
+    return mulmods, 8 * (2 * n * b + max(1, n // 2) + tables)
+
+
+def goldilocks_path(dev):
+    """Phase 8: the Goldilocks 2^24 NTT (bench.py's BENCH_METRIC=ntt) on
+    the card, oracle-checked, timed and profiled."""
+    from zprize_tpu_torch.field import fp
+    from zprize_tpu_torch.field.spec import GOLDILOCKS
+    from zprize_tpu_torch.msm import accum_kernel as ak
+    from zprize_tpu_torch.ntt import fr_kernel, gl_kernel, gl_ops, radix2
+    from zprize_tpu_torch.ntt.domain import Domain, primitive_root
+    from zprize_tpu_torch.utils.oracle import ntt_ints
+    q = gl_ops.Q
+    log_n = GL_LOG1 + GL_LOG2
+    n = 1 << log_n
+
+    def fwd(v):
+        return gl_kernel.ntt_fourstep_packed(GL_LOG1, GL_LOG2, v, dev)
+
+    def inv(v):
+        return gl_kernel.ntt_packed(log_n, v[:, None], True, dev)[:, 0]
+
+    # bench.py's input: 4096 seeded draws, tiled
+    rng = random.Random(0)
+    sample = [rng.randrange(q) for _ in range(GL_PERIOD)]
+    x = gl_ops.from_ints(sample, dev).repeat(n // GL_PERIOD)
+    ak.reset_launches()
+    fr_kernel.reset_launches()
+    gl_kernel.reset_launches()
+    t0 = time.time()
+    out = fwd(x)
+    torch.cuda.synchronize()
+    first_s = time.time() - t0
+    # the closed form of a period-P input: A[k] = 0 unless n/P | k, and
+    # A[(n/P) k'] = (n/P) * DFT_P(sample)[k'] with the root w^(n/P)
+    reps = n // GL_PERIOD
+    w = primitive_root(GOLDILOCKS, log_n)
+    expect = [reps * v % q for v in ntt_ints(sample, pow(w, reps, q), q)]
+    grid = out.view(GL_PERIOD, reps)
+    nonzero = int((grid[:, 1:] != 0).sum())
+    if nonzero or gl_ops.to_ints(grid[:, 0]) != expect:
+        raise AssertionError(f"2^{log_n} NTT of bench.py's input != the "
+                             f"closed form ({nonzero} stray nonzeros)")
+    log(f"goldilocks 2^{log_n}: bench.py's input, all {n} outputs equal the "
+        f"closed form (first call {first_s:.3f} s with its tables)")
+
+    # a random input against the plain radix-2 stage loop (no four-step)
+    gen = torch.Generator(device=dev).manual_seed(SEED + log_n)
+    r = gl_random((n,), gen, dev)
+    got = fwd(r)
+    t0 = time.time()
+    ref = gl_kernel.gl_ntt_plain(r[:, None], log_n)[:, 0]
+    torch.cuda.synchronize()
+    plain_s = time.time() - t0
+    err = max_abs_err(got, ref)
+    back_diff = int((inv(got) != r).sum())
+    torch.cuda.synchronize()
+    log(f"goldilocks 2^{log_n} random input: four-step vs plain stage loop "
+        f"{err} ({plain_s:.3f} s for the plain loop with its table), "
+        f"inverse round trip {back_diff}")
+    if err or back_diff:
+        raise AssertionError("the random 2^24 NTT disagrees")
+    del ref
+
+    # the generic route: radix2.ntt on a Goldilocks domain (words)
+    dom = Domain(GOLDILOCKS, 10, dev)
+    rows = [[rng.randrange(q) for _ in range(dom.n)] for _ in range(2)]
+    before = gl_kernel.launches["gl_ntt"]
+    words = radix2.ntt(dom, fp.from_ints(GOLDILOCKS, rows, dev))
+    got = [int(v) for v in fp.to_ints(GOLDILOCKS, words).reshape(-1)]
+    if got != [v for row in rows for v in ntt_ints(row, dom.w, q)] or \
+            gl_kernel.launches["gl_ntt"] == before:
+        raise AssertionError("radix2.ntt on a Goldilocks domain is wrong or "
+                             "did not launch gl_ntt")
+    log("radix2.ntt on a 2^10 Goldilocks domain == python ints, via gl_ntt")
+
+    # the metric: K chained dependent transforms per iteration
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def chain_ms(step):
+        v = x
+        for _ in range(GL_CHAIN):                  # warm-up
+            v = step(v)
+        times = []
+        for _ in range(GL_ITERS):
+            v = x
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(GL_CHAIN):
+                v = step(v)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / GL_CHAIN)
+        return times
+
+    before = gl_kernel.launches["gl_ntt"]
+    fwd_ms = chain_ms(fwd)
+    per_ntt = (gl_kernel.launches["gl_ntt"] - before) / (
+        GL_CHAIN * (GL_ITERS + 1))
+    inv_ms = chain_ms(inv)
+    peak = torch.cuda.max_memory_allocated()
+    launches = {**gl_kernel.launches, **fr_kernel.launches,
+                **{k: ak.launches[k] for k in ak.KERNELS}}
+    stray = {k: v for k, v in launches.items() if k != "gl_ntt" and v}
+    if launches["gl_ntt"] == 0 or stray:
+        raise AssertionError(f"the Goldilocks path launched {launches}")
+    mean = sum(fwd_ms) / GL_ITERS
+    log(f"goldilocks_ntt_2^{log_n}_ms: {mean:.4f} (forward, {GL_CHAIN}-chain "
+        f"x {GL_ITERS}), inverse {sum(inv_ms) / GL_ITERS:.4f} ms, "
+        f"{per_ntt:g} gl_ntt launches per NTT, peak {peak / 1e9:.3f} GB")
+    summary = {
+        "metric": f"goldilocks_ntt_2^{log_n}_ms", "value": mean,
+        "unit": "ms", "n": n, "split": [GL_LOG1, GL_LOG2],
+        "ntt_ms": fwd_ms, "intt_ms": inv_ms,
+        "intt_ms_mean": sum(inv_ms) / GL_ITERS,
+        "chain": GL_CHAIN, "iters": GL_ITERS,
+        "first_call_s": first_s,
+        "max_memory_allocated": peak,
+        "gl_ntt_launches_per_ntt": per_ntt,
+        "launches": launches,
+        "checked": {"bench_input_outputs": n, "random_vs_plain": n,
+                    "round_trip": n, "radix2_domain_2^10": 2 * dom.n},
+    }
+    def fwd_chain():
+        v = x
+        for _ in range(GL_CHAIN):
+            v = fwd(v)
+
+    summary["profile"] = profile_call(
+        f"goldilocks 2^{log_n} NTT x {GL_CHAIN} (chained)", fwd_chain)
+    summary["profile"]["ntts"] = GL_CHAIN
+    return x, launches, summary
+
+
+def gl_row(x, launches, dev):
+    """gl_ntt at the main path's shapes, timed beside its plain version
+    and its bound, and checked against the plain version: the column pass
+    of the 2^24 four-step (2^12 x 4096 with the step twiddle) first; under
+    "shapes" the row pass, the inverse's row pass (with n^-1), and 2^9 x
+    32768, a size of the TPU's fused kernel."""
+    from zprize_tpu_torch.ntt import gl_kernel, gl_ops
+    q = gl_ops.Q
+    shapes = []
+    cols = x.view(1 << GL_LOG1, 1 << GL_LOG2)
+    rows = x.view(1 << GL_LOG2, 1 << GL_LOG1)
+    small = x.view(1 << 9, -1)
+    n_inv = pow(1 << (GL_LOG1 + GL_LOG2), -1, q)
+    for label, v, log_n, inverse, step_log, scale in (
+            ("column pass", cols, GL_LOG1, False, GL_LOG2, None),
+            ("row pass", rows, GL_LOG2, False, 0, None),
+            ("inverse row pass", rows, GL_LOG2, True, 0, n_inv),
+            ("2^9 columns", small, 9, False, 0, None)):
+        args = (v, log_n, inverse, step_log, 1, scale)
+        ms = timed(lambda: gl_kernel.gl_ntt(*args), 20)
+        t0 = time.time()
+        ref = gl_kernel.gl_ntt_plain(*args)
+        torch.cuda.synchronize()
+        plain_ms = (time.time() - t0) * 1e3
+        err = max_abs_err(gl_kernel.gl_ntt(*args), ref)
+        if err != 0:
+            raise AssertionError(f"gl_ntt != plain at the {label}")
+        mulmods, n_bytes = gl_bound(log_n, v.shape[1], step_log,
+                                    scale is not None)
+        b_ms, b_by = bound_ms(mulmods, n_bytes, IMAD_PER_MULMOD_GL)
+        shapes.append({"shape": label, "n": 1 << log_n, "batch": v.shape[1],
+                       "inverse": inverse, "step_twiddle": bool(step_log),
+                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": b_ms, "bound_by": b_by})
+        log(f"gl_ntt {label} 2^{log_n} x {v.shape[1]}: {ms:.4f} ms (plain "
+            f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms by {b_by}), "
+            "kernel == plain")
+    first = shapes[0]
+    return {"name": "gl_ntt", "route": "cuda",
+            "source": "zprize_tpu_torch/csrc/ntt_gl.cu",
+            "replaces": "zprize_tpu/ntt/gl_kernel.py:110",
+            "also_replaces": "zprize_tpu/ntt/gl_kernel.py:179",
+            "launches": launches["gl_ntt"],
+            "max_abs_err": max(r["max_abs_err"] for r in shapes),
+            "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "library_ms": None, "shapes": shapes}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -858,6 +1174,14 @@ def main():
     for lanes in (4096, 1000):
         check_kernels_random(curve, dev, lanes)
     check_ntt(dev)
+    check_gl_ntt(dev)
+    # phase 8 runs before the MSM phases: late in a run, after their large
+    # profiles, the trace of its short window came back without some or
+    # all of its device events
+    gl_x, gl_launches, goldilocks = goldilocks_path(dev)
+    gl_kernel_row = gl_row(gl_x, gl_launches, dev)
+    del gl_x
+    torch.cuda.empty_cache()
     ctx, aff, batch, launches, summary = main_path(curve, dev)
     summary["profile"] = profile_msm(ctx, batch)
     kernels = kernel_rows(curve, ctx, aff, batch, launches, dev)
@@ -872,9 +1196,11 @@ def main():
     plonk["profile"] = profile_call("PLONK proof", lambda: prover.prove_planes(
         pk, wires, public, blinding_rng=random.Random(18)))
     kernels.append(ntt_row(pk, plonk_launches, dev))
+    kernels.append(gl_kernel_row)
     print(json.dumps(summary), flush=True)
     print(json.dumps(prize), flush=True)
     print(json.dumps(plonk), flush=True)
+    print(json.dumps(goldilocks), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"chip_smoke total: {time.time() - start_s:.1f} s")
     print(card, flush=True)

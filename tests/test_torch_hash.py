@@ -51,7 +51,7 @@ def test_host_sponge_matches_snapshots(absorb_n, squeeze_n):
 @pytest.mark.parametrize("absorb_n,squeeze_n", [(1, 1), (3, 5), (5, 3)])
 def test_sponge_matches_snapshots(absorb_n, squeeze_n):
     """The plain-engine sponge, two lanes at once (both the snapshot)."""
-    sponge = poseidon.Sponge(CFG, (2,))
+    sponge = poseidon.Sponge(CFG, (2,), device="cpu")
     sponge.absorb([fp.from_ints(FR, [1237812, 1237812])] * absorb_n)
     got = [_ints(o) for o in sponge.squeeze(squeeze_n)]
     expect = FIX["sponge_rate2"][f"{absorb_n},{squeeze_n}"]

@@ -1,7 +1,8 @@
 """The port stands alone: every module imports with jax blocked, no source
 names jax or the reference package, and without a card the default-device
-entry points (the MSM's, the test SRS's, the NTT domain's and the
-converters') and chip_smoke.py refuse to run."""
+entry points (the MSM's, the test SRS's, the NTT domain's, the Poseidon
+sponge's, the Goldilocks NTT's and the converters') and chip_smoke.py
+refuse to run."""
 
 import pathlib
 import shutil
@@ -15,7 +16,10 @@ import torch
 
 from zprize_tpu_torch import convert
 from zprize_tpu_torch.curve.spec import BLS12_377_G1
+from zprize_tpu_torch.hash import poseidon
+from zprize_tpu_torch.hash.grain import snarkvm_config
 from zprize_tpu_torch.msm import api
+from zprize_tpu_torch.ntt import gl_kernel
 from zprize_tpu_torch.ntt.domain import Domain
 from zprize_tpu_torch.pcs import kzg
 from torch_memory import release_memory  # noqa: F401
@@ -46,21 +50,22 @@ def test_every_module_imports_with_jax_blocked():
     ])
     r = _python(["-c", code], ROOT)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 38     # 28 modules, 10 subpackages
+    assert int(r.stdout.split()[-1]) >= 41     # 31 modules, 10 subpackages
 
 
 def test_sources_name_neither_jax_nor_the_reference_package():
     files = [p for p in PKG.rglob("*")
              if p.suffix in (".py", ".cu", ".cuh") and "_build" not in p.parts]
     files.append(ROOT / "chip_smoke.py")
-    assert len(files) >= 43
+    assert len(files) >= 47
     for path in files:
         text = path.read_text()
         assert "zprize_tpu." not in text, path
         assert "jax" not in text.lower(), path
 
 
-@pytest.mark.parametrize("entry", ["msm_init", "test_srs", "domain"])
+@pytest.mark.parametrize("entry", ["msm_init", "test_srs", "domain",
+                                   "sponge", "gl_ntt"])
 def test_default_device_entry_point_requires_a_card(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
@@ -70,8 +75,13 @@ def test_default_device_entry_point_requires_a_card(entry):
                                                        BLS12_377_G1.gen_y)])
         elif entry == "test_srs":
             kzg.setup_test_srs(BLS12_377_G1, 4)
-        else:
+        elif entry == "domain":
             Domain(BLS12_377_G1.scalar, 3)
+        elif entry == "sponge":
+            poseidon.Sponge(snarkvm_config(BLS12_377_G1.scalar, 2))
+        else:
+            gl_kernel.ntt_fourstep_packed(2, 2, torch.zeros(16,
+                                                            dtype=torch.int64))
 
 
 _PLANES = np.zeros((2, BLS12_377_G1.field.n_limbs), np.uint32)
@@ -84,6 +94,8 @@ _CONVERTERS = {
         BLS12_377_G1, np.zeros((2, 17), np.uint16)),
     "prepared": lambda: convert.prepared_from_reference(
         BLS12_377_G1, np.zeros((39, 2), np.uint32), 8, 1, 1, 2),
+    "gl": lambda: convert.gl_from_reference(np.zeros(2, np.uint32),
+                                            np.zeros(2, np.uint32)),
     "fr": lambda: convert.fr_from_reference(BLS12_377_G1,
                                             np.zeros((2, 17), np.uint32)),
     "srs": lambda: convert.srs_from_reference(types.SimpleNamespace(

@@ -2,12 +2,14 @@
 
 The reference keeps field elements as (n, 26) redundant base-2^15 limb
 planes (limbs < 2^16, value reduced mod p only lazily), scalars as (n, 17)
-limb planes or the uint16 compact form of the benchmark, and its prepared
-window-collapse table u16-packed and column-major.  Everything here takes
-numpy arrays and returns this port's tensors, reducing values mod p
-exactly through python ints (fine at test sizes; the main path never
-converts a large table).  Like the other entry points, they return
-tensors on the card unless the caller passes ``device="cpu"``.
+limb planes or the uint16 compact form of the benchmark, its prepared
+window-collapse table u16-packed and column-major, and Goldilocks elements
+as packed (lo, hi) u32 planes, reduced lazily (any value below 2^64).
+Everything here takes numpy arrays and returns this port's tensors,
+reducing values mod p exactly through python ints (fine at test sizes;
+the main path never converts a large table).  Like the other entry
+points, they return tensors on the card unless the caller passes
+``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from .curve.spec import ALL_CURVES, CurveSpec
 from .field import fp
 from .field.spec import BASE_BITS, FieldSpec
 from .msm.pippenger import PreparedTe
+from .ntt import gl_ops
 from .pcs.kzg import Srs
 from .utils.device import resolve_device
 
@@ -94,6 +97,24 @@ def fr_from_reference(curve: CurveSpec, planes, device=None) -> torch.Tensor:
     """Reference scalar-field planes (..., 17), e.g. PLONK wire planes or
     coefficients -> Montgomery words (..., 8) of the curve's Fr."""
     return elements_from_reference(curve.scalar, planes, device)
+
+
+def gl_from_reference(lo, hi, device=None) -> torch.Tensor:
+    """The reference's packed Goldilocks planes (lo, hi), u32 arrays of one
+    shape -> canonical elements (u64 bit patterns in int64, `ntt/gl_ops`)."""
+    lo, hi = np.asarray(lo, np.uint32), np.asarray(hi, np.uint32)
+    if lo.shape != hi.shape:
+        raise ValueError(f"lo {lo.shape} and hi {hi.shape} differ")
+    device = resolve_device(device)
+    return gl_ops.from_planes(torch.from_numpy(lo.astype(np.int64)).to(device),
+                              torch.from_numpy(hi.astype(np.int64)).to(device))
+
+
+def gl_to_reference(x: torch.Tensor):
+    """Canonical Goldilocks elements -> the reference's (lo, hi) numpy u32
+    planes."""
+    return tuple(p.cpu().numpy().astype(np.uint32)
+                 for p in gl_ops.to_planes(x))
 
 
 def srs_from_reference(ref_srs, device=None):

@@ -24,6 +24,7 @@ import functools
 import torch
 
 from ..field import fp
+from ..utils.device import resolve_device
 from .grain import PoseidonConfig
 
 
@@ -90,16 +91,18 @@ class Sponge:
     capacity element first, absorb/squeeze mode tracking, a permutation
     when the rate runs out.
 
-    The state is a (*batch_shape, t, n_words) tensor on `device`, whose
-    absorbed and squeezed elements are (*batch_shape, n_words) planes, or,
-    with `host=True`, a list of t python ints, whose elements are ints."""
+    The state is a (*batch_shape, t, n_words) tensor on `device` (the card
+    unless the caller asks for the CPU), whose absorbed and squeezed
+    elements are (*batch_shape, n_words) planes, or, with `host=True`, a
+    list of t python ints, whose elements are ints."""
 
-    def __init__(self, cfg: PoseidonConfig, batch_shape=(), device="cpu",
+    def __init__(self, cfg: PoseidonConfig, batch_shape=(), device=None,
                  host: bool = False):
         self.cfg = cfg
         self.host = host
         self.state = ([0] * cfg.t if host else
-                      fp.zeros(cfg.spec, (*batch_shape, cfg.t), device))
+                      fp.zeros(cfg.spec, (*batch_shape, cfg.t),
+                               resolve_device(device)))
         self.mode = ("absorbing", 0)
 
     def clone(self) -> "Sponge":

@@ -9,13 +9,15 @@ Radix2 convention, cf. snarkVM `algorithms/src/fft/domain.rs`).
 
 Power tables are built on the host from python ints (a running product,
 exact by construction) and held on the domain's device as Montgomery word
-rows of ``field/fp.py``.
+rows of ``field/fp.py``; for Goldilocks also as canonical u64 values in
+int64 (``gl_powers``), the form the Goldilocks NTT kernel reads.
 """
 
 from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from ..field import fp
@@ -61,6 +63,37 @@ def power_table(spec: FieldSpec, count: int, w: int, device="cpu"
     return _power_table(spec, count, w).to(device)
 
 
+def _indexed(device: torch.device) -> torch.device:
+    """The card as cuda:<current index>, so that cache keys agree."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+@functools.lru_cache(maxsize=None)
+def _gl_power_table(log_n: int, inverse: bool) -> torch.Tensor:
+    q = GOLDILOCKS.p
+    w = primitive_root(GOLDILOCKS, log_n)
+    vals = power_ints(GOLDILOCKS, max(1, (1 << log_n) // 2),
+                      pow(w, q - 2, q) if inverse else w)
+    return torch.from_numpy(np.array(vals, dtype=np.uint64).view(np.int64))
+
+
+_gl_tables: dict = {}
+
+
+def gl_powers(log_n: int, inverse: bool = False, device=None
+              ) -> torch.Tensor:
+    """Goldilocks w^0 .. w^(n/2 - 1) (of w^-1 for the inverse; one entry
+    for n = 1) as canonical u64 values in int64, on `device` (the card
+    unless the caller asks for the CPU); cached per device."""
+    device = _indexed(resolve_device(device))
+    key = (log_n, inverse, device)
+    if key not in _gl_tables:
+        _gl_tables[key] = _gl_power_table(log_n, inverse).to(device)
+    return _gl_tables[key]
+
+
 def bitrev_perm(log_n: int, device="cpu") -> torch.Tensor:
     """The bit-reversal permutation of 0..2^log_n - 1 (int64)."""
     idx = torch.arange(1 << log_n, device=device)
@@ -81,9 +114,7 @@ class Domain:
     _cache: dict = {}
 
     def __new__(cls, spec: FieldSpec, log_n: int, device=None):
-        device = resolve_device(device)
-        if device.type == "cuda" and device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
+        device = _indexed(resolve_device(device))
         key = (spec.name, log_n, device)
         if key in cls._cache:
             return cls._cache[key]

@@ -91,10 +91,9 @@ def fr_ntt(dom: Domain, a: torch.Tensor, inverse: bool = False
     if a.device.type != "cuda":
         raise ValueError(f"unsupported device {a.device}")
     if fp.n_words(dom.spec) != N_WORDS:
-        raise NotImplementedError(
-            f"{dom.spec.name}: the device NTT takes 8-word scalar fields; "
-            "the Goldilocks NTT is not ported yet: ROADMAP.md Queue 1, "
-            "item 6")
+        raise ValueError(
+            f"{dom.spec.name}: fr_ntt takes 8-word scalar fields (the "
+            "Goldilocks NTT is gl_kernel.gl_ntt)")
     if dom.n == 1:
         return a.clone()
     out = torch.empty_like(a)

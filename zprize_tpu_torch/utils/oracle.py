@@ -1,5 +1,6 @@
 """Python-int reference for the MSM: affine short-Weierstrass group law,
-the generator chain k·G, and the seeded scalar batches of the benchmark.
+the generator chain k·G, and the seeded scalar batches of the benchmark;
+and for the NTT: the direct transform and a recursive radix-2 one.
 
 Points are affine int pairs with None as the identity.  When the base
 points are the chain P_i = (i+1)·G, an MSM collapses to one scalar
@@ -134,3 +135,29 @@ def oracle_agg(curve: CurveSpec, batch_u16: np.ndarray, n_base: int) -> list:
     assert reps < (1 << 48)  # int64 headroom: limb < 2^15, sum < reps*2^15
     return [sum(int(sums[i, k]) << (15 * k) for k in range(L)) % curve.order
             for i in range(n_base)]
+
+
+def dft_ints(values: list, w: int, p: int) -> list:
+    """A[k] = sum_j a_j w^(jk) mod p, term by term (O(n^2))."""
+    n = len(values)
+    pw = [pow(w, e, p) for e in range(n)]
+    return [sum(a * pw[j * k % n] for j, a in enumerate(values)) % p
+            for k in range(n)]
+
+
+def ntt_ints(values: list, w: int, p: int) -> list:
+    """The same transform, w of order len(values) (a power of two), by the
+    recursive even/odd split (O(n log n))."""
+    n = len(values)
+    if n == 1:
+        return [values[0] % p]
+    even = ntt_ints(values[0::2], w * w % p, p)
+    odd = ntt_ints(values[1::2], w * w % p, p)
+    out = [0] * n
+    t = 1
+    for k in range(n // 2):
+        v = odd[k] * t % p
+        out[k] = (even[k] + v) % p
+        out[k + n // 2] = (even[k] - v) % p
+        t = t * w % p
+    return out
