@@ -22,6 +22,14 @@ In order, each phase raising on failure (so the exit code is non-zero):
    holding 0, 1, q-1 and 2^32-1; a column pass with the two-level step
    twiddle; intt(ntt(x)) == x; and the plain version against a python-int
    DFT at 2^3 and 2^9;
+3d. holds the two short-Weierstrass kernels against their plain versions,
+   bit for bit, with BLS12-381's and BLS12-377's constants, at 4096 and
+   1000 lanes: sw_gather_accumulate over two windows (empty runs, runs of
+   one, negative signs, a point added twice (P + P), a point and its
+   negative (P + (-P)), curve points beside random words, rows at 0, 1
+   and p-1), and sw_full_add in place (identity accumulators and
+   operands, doubling, P + (-P), skip lanes, edge lanes, and the
+   accumulator added to itself);
 4. drives the MSM main path through the user entry points at the
    benchmark's default size: n = 2^18 BLS12-377 G1 points, 1024 distinct
    base points (i+1)·G tiled, `multi_scalar_mult_init`, then a warm-up and
@@ -72,10 +80,23 @@ In order, each phase raising on failure (so the exit code is non-zero):
    NTTs; gl_ntt's row at its main-path shapes; and the path must have
    launched gl_ntt and no MSM or Fr kernel.
 
+9. (run right after 8) drives the short-Weierstrass MSM route: BLS12-381
+   G1 at n = 2^18 through `multi_scalar_mult_init` (c = 13: 21 windows,
+   2^12 buckets in each full window), a warm-up and 4 timed batches, every
+   result checked against the python-int oracle, each MSM launching
+   sw_gather_accumulate and sw_full_add and no TE or NTT kernel;
+   BLS12-377 at 2^18 with te=False against the oracle and against the TE
+   route's result for the same batch; a skewed 2^12 run (all scalars
+   equal; half zero, half equal); `msm_jit_batch` with B = 4 at 2^16
+   against four single MSMs; `kzg.commit_batch` on a BLS12-381 test SRS
+   against `commit` row by row (and python ints); `msm_jit_static` with a
+   too-small cap_total on equal scalars raising "occupancy"; one profiled
+   2^18 MSM; and both kernels' rows at the path's shapes.
+
 Prints one JSON line for the 2^18 MSM path, one for the 2^26 path, one
-for the PLONK path, one for the Goldilocks NTT, one {"kernels": [...]}
-line, the total time, the nvidia-smi line, and last {"ok": true,
-"device": {...}}.
+for the PLONK path, one for the Goldilocks NTT, one for the SW route, one
+{"kernels": [...]} line, the total time, the nvidia-smi line, and last
+{"ok": true, "device": {...}}.
 """
 
 import json
@@ -106,7 +127,13 @@ IMAD_PER_S = 16.75e12
 IMAD_PER_MULMOD = 2 * 288 + 12
 # the same for an 8-word (Fr) mulmod: 128 wide products and 8 low-half
 IMAD_PER_MULMOD_FR = 2 * 128 + 8
-MULMODS = {"madd": 7, "add": 9, "dbl": 8}
+MULMODS = {"madd": 7, "add": 9, "dbl": 8,
+           # the SW (RCB a = 0) adds, counting the two products by the
+           # small constant 3b as the additions they could be
+           "sw_madd": 11, "sw_add": 12}
+SW_LOG = 18                                # the SW route at 2^18 (prize 4)
+SW_BATCH_LOG, SW_BATCH = 16, 4             # msm_jit_batch: B x 2^16
+SW_SRS_LOG = 12                            # the BLS12-381 test SRS
 NTT_SIZES = (1, 3, 9, 10, 11, 13)          # log2 n of the phase-3b checks
 GL_SIZES = (1, 3, 9, 10, 12)               # log2 n of the phase-3c checks
 GL_LOG1, GL_LOG2 = 12, 12                  # bench.py's 2^24 NTT, four-step
@@ -128,6 +155,8 @@ KERNEL_SYMBOLS = {"te_dbl_chain": ("k_dbl_chain",),
                   "te_gather_accumulate": ("k_gather_accumulate",),
                   "te_full_add": ("k_full_add",),
                   "te_combine": ("k_combine",),
+                  "sw_gather_accumulate": ("k_sw_gather_accumulate",),
+                  "sw_full_add": ("k_sw_full_add",),
                   "fr_ntt": ("k_ntt_tile", "k_ntt_stage"),
                   "gl_ntt": ("k_gl_ntt",)}
 
@@ -254,23 +283,90 @@ def check_kernels_random(curve, dev, lanes):
             raise AssertionError(f"{name} disagrees with its plain version")
 
 
-def main_path(curve, dev):
-    """Phase 4: init + warm-up + 4 timed MSMs, each oracle-checked."""
+def check_sw_kernels(curve, dev, lanes):
+    """Phase 3d: sw_gather_accumulate and sw_full_add == their plain
+    versions, bit for bit, at `lanes` lanes with `curve`'s constants."""
     from zprize_tpu_torch.curve import sw
     from zprize_tpu_torch.field import fp
     from zprize_tpu_torch.msm import accum_kernel as ak
-    from zprize_tpu_torch.msm import api
     from zprize_tpu_torch.utils import oracle
     f = curve.field
+    nw = fp.n_words(f)
+    rng = random.Random(SEED + lanes + curve.b)
+    gen = torch.Generator(device=dev).manual_seed(SEED + lanes + curve.b)
+    results = {}
+
+    # points: 64 curve points (i+1)·G, then random words; edge rows
+    n_pts = 4 * lanes
+    chain = oracle.generator_chain(curve, 64)
+    px = random_elems(fp, f, (n_pts,), rng, dev)
+    py = random_elems(fp, f, (n_pts,), rng, dev)
+    px[:64] = fp.from_ints(f, [q[0] for q in chain], dev)
+    py[:64] = fp.from_ints(f, [q[1] for q in chain], dev)
+    for k, v in enumerate((0, 1, f.p - 1)):
+        px[64 + k] = py[64 + k] = fp.raw_words(f, v, dev)
+    n_win = 2
+    perm = torch.stack([torch.randperm(n_pts, generator=gen, device=dev)
+                        for _ in range(n_win)])
+    sign = torch.randint(0, 2, (n_win, n_pts), generator=gen,
+                         dtype=torch.int32, device=dev)
+    counts = torch.randint(0, 9, (n_win, lanes // 2), generator=gen,
+                           dtype=torch.int64, device=dev)
+    counts[:, 1] = 0                                 # empty runs
+    counts[:, 2] = 1                                 # runs of one
+    counts[:, 0] = 6
+    starts = (torch.cumsum(counts, 1) - counts) % (n_pts - 8)
+    starts[:, 0] = 0
+    # window 0, bucket 0: P + P, then P + (-P), then the edge rows
+    perm[0, :6] = torch.tensor([5, 5, 9, 9, 64, 66], device=dev)
+    sign[0, :6] = torch.tensor([0, 0, 0, 1, 0, 1], dtype=torch.int32,
+                               device=dev)
+    out = ak.sw_gather_accumulate(curve, px, py, perm, sign, starts, counts)
+    results["sw_gather_accumulate"] = max_abs_err(
+        out, ak.sw_gather_accumulate_plain(curve, px, py, perm, sign, starts,
+                                           counts))
+    if max_abs_err(out[:, 1], sw.pack(sw.identity(curve, (n_win,), dev))):
+        raise AssertionError("an empty run is not the identity (0 : 1 : 0)")
+
+    # sw_full_add: accumulators and operands with every special lane
+    acc = random_elems(fp, f, (lanes, 3), rng, dev)
+    q = random_elems(fp, f, (lanes, 3), rng, dev)
+    real = sw.pack(sw.from_affine(curve, sw.Affine(
+        px[:8], py[:8], torch.zeros(8, dtype=torch.bool, device=dev))))
+    ident = sw.pack(sw.identity(curve, (), dev))
+    acc[:8], q[:8] = real, real.flip(0)
+    acc[8], q[8] = real[0], real[0]                  # P + P
+    acc[9] = real[1]                                 # P + (-P)
+    q[9] = sw.pack(sw.neg(curve, sw.unpack(real[1])))
+    acc[10], q[11] = ident, ident                    # identity lanes
+    acc[12] = q[12] = ident
+    for k, v in enumerate((0, 1, f.p - 1)):          # edge lanes
+        acc[13 + k] = fp.raw_words(f, v, dev).expand(3, nw)
+    skip = (torch.arange(lanes, device=dev) % 7 == 3).to(torch.int32)
+    got = ak.sw_full_add(curve, acc.clone(), q, skip)
+    ref = ak.sw_full_add_plain(curve, acc.clone(), q, skip)
+    results["sw_full_add"] = max_abs_err(got, ref)
+    doubled = acc.clone()
+    ak.sw_full_add(curve, doubled, doubled, skip)    # acc + acc in place
+    results["sw_full_add (acc + acc)"] = max_abs_err(
+        doubled, ak.sw_full_add_plain(curve, acc.clone(), acc, skip))
+    torch.cuda.synchronize()
+    for name, err in results.items():
+        log(f"{curve.name} kernel vs plain, {lanes} lanes: {name} "
+            f"max_abs_err={err}")
+        if err != 0:
+            raise AssertionError(f"{name} disagrees with its plain version")
+
+
+def main_path(curve, dev):
+    """Phase 4: init + warm-up + 4 timed MSMs, each oracle-checked."""
+    from zprize_tpu_torch.msm import accum_kernel as ak
+    from zprize_tpu_torch.msm import api
+    from zprize_tpu_torch.utils import oracle
     n = 1 << N_LOG
     t0 = time.time()
-    base = oracle.generator_chain(curve, N_BASE)
-    reps = n // N_BASE
-    aff = sw.Affine(
-        fp.from_ints(f, [p[0] for p in base], dev).repeat(reps, 1),
-        fp.from_ints(f, [p[1] for p in base], dev).repeat(reps, 1),
-        torch.zeros(n, dtype=torch.bool, device=dev))
-    log(f"base points: {N_BASE} x {reps} in {time.time() - t0:.3f} s")
+    aff = tiled_points(curve, n, dev)
+    log(f"base points: {N_BASE} x {n // N_BASE} in {time.time() - t0:.3f} s")
     rng = np.random.default_rng(SEED)
     batches = [oracle.scalar_batch_np(curve, rng, n)
                for _ in range(BATCHES + 1)]
@@ -287,16 +383,10 @@ def main_path(curve, dev):
     log(f"init: {init_s:.3f} s, plan c={p.c} g={p.g} m={p.m}, table "
         f"{p.table.numel() * 4 / 1e9:.3f} GB, launches {init_launches}")
 
-    def check(k, res, batch):
-        agg = oracle.oracle_agg(curve, batch, N_BASE)
-        exp = oracle.chain_msm(curve, agg)
-        if sw.to_affine_ints(curve, res) != exp:
-            raise AssertionError(f"batch {k}: MSM result != oracle")
-
     t0 = time.time()
     res = api.multi_scalar_mult(ctx, batches[0])[0]
     log(f"warm-up MSM: {time.time() - t0:.3f} s (host clock)")
-    check("warm-up", res, batches[0])
+    check_tiled(curve, res, batches[0], "warm-up")
     times, per_msm = [], None
     for k in range(1, BATCHES + 1):
         s = torch.from_numpy(batches[k].astype(np.int32)).to(dev)
@@ -311,7 +401,7 @@ def main_path(curve, dev):
         times.append(start.elapsed_time(end))
         per_msm = {name: ak.launches[name] - before[name]
                    for name in ak.KERNELS}
-        check(k, res, batches[k])
+        check_tiled(curve, res, batches[k], f"batch {k}")
         log(f"batch {k}: {times[-1]:.3f} ms, result verified")
     launches = dict(ak.launches)
     missing = [name for name in COLLAPSED_ROUTE if launches[name] == 0]
@@ -343,19 +433,11 @@ def prize_path(curve, dev):
     warm-up + BATCHES timed MSMs at 2^26, each oracle-checked, then the
     skewed m = 1 run at 2^12.  Batches are drawn one at a time and
     dropped after their check."""
-    from zprize_tpu_torch.curve import sw
-    from zprize_tpu_torch.field import fp
     from zprize_tpu_torch.msm import accum_kernel as ak
     from zprize_tpu_torch.msm import api, pippenger
     from zprize_tpu_torch.utils import oracle
-    f = curve.field
     n = 1 << PRIZE_LOG
-    reps = n // N_BASE
-    base = oracle.generator_chain(curve, N_BASE)
-    aff = sw.Affine(
-        fp.from_ints(f, [p[0] for p in base], dev).repeat(reps, 1),
-        fp.from_ints(f, [p[1] for p in base], dev).repeat(reps, 1),
-        torch.zeros(n, dtype=torch.bool, device=dev))
+    aff = tiled_points(curve, n, dev)
     gen = torch.Generator(device=dev).manual_seed(SEED + PRIZE_LOG)
 
     torch.cuda.synchronize()
@@ -374,11 +456,6 @@ def prize_path(curve, dev):
     if (p.c, p.g, p.m) != (17, 16, 1) or any(init_launches.values()):
         raise AssertionError("the 2^26 init did not take the m = 1 plan")
 
-    def check(k, res, batch):
-        exp = oracle.chain_msm(curve, oracle.oracle_agg(curve, batch, N_BASE))
-        if sw.to_affine_ints(curve, res) != exp:
-            raise AssertionError(f"2^{PRIZE_LOG} batch {k}: MSM != oracle")
-
     # the batches are drawn on the card from a seed (drawing 2^26 x 17
     # limbs with numpy takes about a minute a batch) and copied to the
     # host for the oracle; the warm-up goes through the API as a host
@@ -391,7 +468,7 @@ def prize_path(curve, dev):
     res = api.multi_scalar_mult(ctx, batch)[0]
     log(f"2^{PRIZE_LOG} warm-up MSM: {time.time() - t0:.3f} s (host clock, "
         f"upload included); batch made in {gen_s:.1f} s")
-    check("warm-up", res, batch)
+    check_tiled(curve, res, batch, f"2^{PRIZE_LOG} warm-up")
     times, per_msm = [], []
     for k in range(1, BATCHES + 1):
         s = oracle.scalar_batch_torch(curve, n, gen)
@@ -408,7 +485,7 @@ def prize_path(curve, dev):
                         for name in ak.KERNELS})
         batch = s.cpu().numpy().view(np.uint16)
         del s
-        check(k, res, batch)
+        check_tiled(curve, res, batch, f"2^{PRIZE_LOG} batch {k}")
         log(f"2^{PRIZE_LOG} batch {k}: {times[-1]:.3f} ms, result verified, "
             f"launches {per_msm[-1]}")
     launches = dict(ak.launches)
@@ -438,13 +515,14 @@ def prize_path(curve, dev):
         "oracle_checked_batches": BATCHES + 1,
         "scalar_batch_host_s": gen_s,
     }
-    summary["skewed_2^12"] = skewed_run(curve, dev)
+    summary["skewed_2^12"] = skewed_run(curve, dev, "m = 1", collapse=False)
     return ctx, batch, launches, summary
 
 
-def skewed_run(curve, dev):
-    """An m = 1 run at 2^12 (collapse=False: c = 9) with skewed scalars:
-    all equal, and half zero with the rest equal; oracle-checked."""
+def skewed_run(curve, dev, route, **init):
+    """A 2^SKEW_LOG run with skewed scalars (all equal; half zero, half
+    equal), every point of a window in one bucket, oracle-checked; `init`
+    goes to `multi_scalar_mult_init` (collapse=False: the m = 1 route)."""
     from zprize_tpu_torch.curve import sw
     from zprize_tpu_torch.msm import api
     from zprize_tpu_torch.utils import oracle
@@ -453,7 +531,7 @@ def skewed_run(curve, dev):
     one = oracle.scalar_batch_np(curve, np.random.default_rng(SEED), 1)[0]
     batch = np.stack([np.tile(one, (n, 1))] * 2)
     batch[1, ::2] = 0
-    ctx = api.multi_scalar_mult_init(curve, pts, device=dev, collapse=False)
+    ctx = api.multi_scalar_mult_init(curve, pts, device=dev, **init)
     torch.cuda.synchronize()
     t0 = time.time()
     res = api.multi_scalar_mult(ctx, batch)
@@ -466,12 +544,225 @@ def skewed_run(curve, dev):
                             k * sum(i + 1 for i in idx) % curve.order,
                             curve.field.p)
         if sw.to_affine_ints(curve, r) != exp:
-            raise AssertionError(f"skewed 2^{SKEW_LOG} run ({name}) != "
-                                 "oracle")
-    log(f"skewed m = 1 run at 2^{SKEW_LOG} (c = {ctx.prepared.c}): all "
+            raise AssertionError(f"skewed {route} 2^{SKEW_LOG} run ({name}) "
+                                 "!= oracle")
+    log(f"skewed {route} run at 2^{SKEW_LOG} (c = {ctx.prepared.c}): all "
         f"equal and half zero verified, {ms:.1f} ms per MSM (host clock)")
     return {"n": n, "c": ctx.prepared.c, "ms_per_msm_host": ms,
             "verified": 2}
+
+
+def tiled_points(curve, n, dev):
+    """N_BASE distinct points (i+1)·G tiled to n, as affine planes."""
+    from zprize_tpu_torch.curve import sw
+    from zprize_tpu_torch.field import fp
+    from zprize_tpu_torch.utils import oracle
+    f = curve.field
+    base = oracle.generator_chain(curve, N_BASE)
+    reps = n // N_BASE
+    return sw.Affine(
+        fp.from_ints(f, [p[0] for p in base], dev).repeat(reps, 1),
+        fp.from_ints(f, [p[1] for p in base], dev).repeat(reps, 1),
+        torch.zeros(n, dtype=torch.bool, device=dev))
+
+
+def check_tiled(curve, res, batch, label):
+    """res (an SW point) == the oracle's MSM of `batch` over the tiled
+    base set."""
+    from zprize_tpu_torch.curve import sw
+    from zprize_tpu_torch.utils import oracle
+    exp = oracle.chain_msm(curve, oracle.oracle_agg(curve, batch, N_BASE))
+    if sw.to_affine_ints(curve, res) != exp:
+        raise AssertionError(f"{label}: MSM result != oracle")
+
+
+def lane(p, i):
+    """Lane i of a lane-batched point."""
+    from zprize_tpu_torch.curve import sw
+    return sw.Point(*(a[i] for a in p))
+
+
+def sw_path(dev):
+    """Phase 9: the SW route at 2^18 on BLS12-381 (init, warm-up and
+    BATCHES timed MSMs, each oracle-checked; the main path's launch
+    check), then BLS12-377 with te=False against the oracle and the TE
+    route, a skewed 2^12 run, the batched forms and the occupancy guard."""
+    from zprize_tpu_torch.curve.spec import BLS12_381_G1
+    from zprize_tpu_torch.msm import accum_kernel as ak
+    from zprize_tpu_torch.msm import api, pippenger
+    from zprize_tpu_torch.ntt import fr_kernel, gl_kernel
+    from zprize_tpu_torch.utils import oracle
+    curve = BLS12_381_G1
+    n = 1 << SW_LOG
+    aff = tiled_points(curve, n, dev)
+    rng = np.random.default_rng(SEED + 381)
+    batches = [oracle.scalar_batch_np(curve, rng, n)
+               for _ in range(BATCHES + 1)]
+
+    def all_launches():
+        return {**ak.launches, **fr_kernel.launches, **gl_kernel.launches}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ak.reset_launches()
+    fr_kernel.reset_launches()
+    gl_kernel.reset_launches()
+    t0 = time.time()
+    ctx = api.multi_scalar_mult_init(curve, aff, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    p = ctx.prepared
+    if (not isinstance(p, pippenger.PreparedSw)
+            or p.c != pippenger.default_window_bits(n)):
+        raise AssertionError(f"BLS12-381 init took {type(p).__name__}, "
+                             f"c = {p.c}")
+    t0 = time.time()
+    res = api.multi_scalar_mult(ctx, batches[0])[0]
+    log(f"bls12_381 2^{SW_LOG}: init {init_s:.3f} s (c = {p.c}), warm-up "
+        f"MSM {time.time() - t0:.3f} s (host clock)")
+    check_tiled(curve, res, batches[0], "bls12_381 warm-up")
+    times, per_msm = [], []
+    for k in range(1, BATCHES + 1):
+        s = torch.from_numpy(batches[k].view(np.int16)).to(dev)
+        torch.cuda.synchronize()
+        before = all_launches()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = api.multi_scalar_mult(ctx, s)[0]
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        per_msm.append({name: v - before[name]
+                        for name, v in all_launches().items()})
+        check_tiled(curve, res, batches[k], f"bls12_381 batch {k}")
+        log(f"bls12_381 2^{SW_LOG} batch {k}: {times[-1]:.3f} ms, result "
+            f"verified, launches {per_msm[-1]}")
+    launches = all_launches()
+    for k, launched in enumerate(per_msm, 1):
+        stray = {name: v for name, v in launched.items()
+                 if v and name not in ak.SW_KERNELS}
+        if stray or 0 in (launched[name] for name in ak.SW_KERNELS):
+            raise AssertionError(f"bls12_381 MSM {k} launches {launched} "
+                                 "are not the SW route's")
+    mean = sum(times) / len(times)
+    summary = {
+        "metric": f"bls12_381_msm_2^{SW_LOG}",
+        "n": n, "c": p.c, "route": "sw",
+        "msm_ms": times, "msm_ms_mean": mean,
+        "points_per_s": n / (mean / 1e3),
+        "init_s": init_s,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "launches_per_msm": per_msm[-1],
+        "oracle_checked_batches": BATCHES + 1,
+    }
+    summary["bls12_377_sw"] = bls377_sw_vs_te(dev)
+    summary["skewed_2^12"] = skewed_run(curve, dev, "SW")
+    summary["batched"] = batched_forms(curve, dev)
+    return ctx, aff, batches[1], launches, summary
+
+
+def bls377_sw_vs_te(dev):
+    """BLS12-377 at 2^SW_LOG on the SW route (te=False): one batch against
+    the oracle and against the TE route's result for the same batch."""
+    from zprize_tpu_torch.curve import sw
+    from zprize_tpu_torch.curve.spec import BLS12_377_G1 as curve
+    from zprize_tpu_torch.msm import api, pippenger
+    from zprize_tpu_torch.utils import oracle
+    n = 1 << SW_LOG
+    aff = tiled_points(curve, n, dev)
+    batch = oracle.scalar_batch_np(curve, np.random.default_rng(SEED + 377),
+                                   n)
+    ctx = api.multi_scalar_mult_init(curve, aff, device=dev, te=False)
+    if not isinstance(ctx.prepared, pippenger.PreparedSw):
+        raise AssertionError("te=False did not take the SW route")
+    c_sw = ctx.prepared.c
+    torch.cuda.synchronize()
+    t0 = time.time()
+    res_sw = api.multi_scalar_mult(ctx, batch)[0]
+    torch.cuda.synchronize()
+    sw_ms = (time.time() - t0) * 1e3
+    check_tiled(curve, res_sw, batch, "bls12_377 te=False")
+    del ctx
+    ctx = api.multi_scalar_mult_init(curve, aff, device=dev)
+    res_te = api.multi_scalar_mult(ctx, batch)[0]
+    if sw.to_affine_ints(curve, res_sw) != sw.to_affine_ints(curve, res_te):
+        raise AssertionError("bls12_377: the SW route != the TE route")
+    log(f"bls12_377 2^{SW_LOG} with te=False (c = {c_sw}; the TE route's "
+        f"plan c = {ctx.prepared.c}): == oracle == TE route ({sw_ms:.1f} ms "
+        "host clock)")
+    return {"n": n, "sw_ms_host": sw_ms, "equals_oracle": True,
+            "equals_te_route": True}
+
+
+def batched_forms(curve, dev):
+    """msm_jit_batch (B x 2^16) == single MSMs and the oracle; commit_batch
+    on a test SRS == commit row by row and python ints; msm_jit_static
+    with a too-small cap on equal scalars raises naming the occupancy."""
+    from zprize_tpu_torch.curve import sw
+    from zprize_tpu_torch.field import fp
+    from zprize_tpu_torch.msm import pippenger
+    from zprize_tpu_torch.pcs import kzg
+    from zprize_tpu_torch.utils import oracle
+    n = 1 << SW_BATCH_LOG
+    aff = tiled_points(curve, n, dev)
+    rng = np.random.default_rng(SEED + SW_BATCH_LOG)
+    batch = np.stack([oracle.scalar_batch_np(curve, rng, n)
+                      for _ in range(SW_BATCH)])
+    c = pippenger.default_window_bits(n)
+    s = torch.from_numpy(batch.view(np.int16)).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = pippenger.msm_jit_batch(curve, aff, s, c, n)
+    torch.cuda.synchronize()
+    batch_ms = (time.time() - t0) * 1e3
+    prep = pippenger.prepare_points(curve, aff)
+    for b in range(SW_BATCH):
+        single = pippenger.msm(curve, aff, s[b], prepared=prep)
+        if (sw.to_affine_ints(curve, lane(out, b))
+                != sw.to_affine_ints(curve, single)):
+            raise AssertionError(f"msm_jit_batch row {b} != a single MSM")
+        check_tiled(curve, single, batch[b], f"msm_jit_batch row {b}")
+    log(f"msm_jit_batch {SW_BATCH} x 2^{SW_BATCH_LOG}: == {SW_BATCH} single "
+        f"MSMs == oracle ({batch_ms:.1f} ms host clock)")
+
+    t0 = time.time()
+    srs = kzg.setup_test_srs(curve, 1 << SW_SRS_LOG, seed=5, device=dev)
+    torch.cuda.synchronize()
+    srs_s = time.time() - t0
+    m = (1 << SW_SRS_LOG) - 3
+    prng = random.Random(SEED)
+    rows = [[prng.randrange(curve.order) for _ in range(m)]
+            for _ in range(SW_BATCH)]
+    coeffs = fp.from_ints(curve.scalar, rows, dev)
+    coms = kzg.commit_batch(srs, coeffs)
+    for b in range(SW_BATCH):
+        got = kzg.point_ints(curve, lane(coms, b))
+        if got != kzg.point_ints(curve, kzg.commit(srs, coeffs[b])):
+            raise AssertionError(f"commit_batch row {b} != commit")
+    k = sum(v * pow(srs.tau, i, curve.order)
+            for i, v in enumerate(rows[0])) % curve.order
+    if kzg.point_ints(curve, lane(coms, 0)) != oracle.ec_mul(
+            oracle.generator(curve), k, curve.field.p):
+        raise AssertionError("commit_batch row 0 != python ints")
+    log(f"commit_batch {SW_BATCH} x {m} on a BLS12-381 SRS of 2^{SW_SRS_LOG} "
+        f"(built in {srs_s:.2f} s): == commit row by row == python ints")
+
+    equal = torch.from_numpy(np.tile(batch[0, :1], (n, 1)).view(
+        np.int16)).to(dev)
+    try:
+        pippenger.msm_jit_static(curve, aff, equal, c, n // 16)
+    except RuntimeError as exc:
+        if "occupancy" not in str(exc):
+            raise
+        log(f"msm_jit_static, equal scalars, cap_total {n // 16}: raised "
+            f"({exc})")
+    else:
+        raise AssertionError("msm_jit_static did not refuse an occupancy "
+                             "over cap_total")
+    return {"msm_jit_batch": [SW_BATCH, n], "batch_ms_host": batch_ms,
+            "commit_batch": [SW_BATCH, m], "srs_size": 1 << SW_SRS_LOG,
+            "srs_s": srs_s, "occupancy_guard": True}
 
 
 def port_launches():
@@ -689,6 +980,71 @@ def gather_row(curve, ctx, batch, launches, dev):
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "rows": rows, "buckets": nbe}
+
+
+def sw_rows(curve, ctx, aff, batch, launches, dev):
+    """Both SW kernels at the 2^18 path's shapes, timed beside their plain
+    versions and bounds, and checked against the plain versions:
+    sw_gather_accumulate over the full-width window group of one batch,
+    sw_full_add at the lanes of one step of that group's merge scan."""
+    from zprize_tpu_torch.field import fp
+    from zprize_tpu_torch.msm import accum_kernel as ak
+    from zprize_tpu_torch.msm import pippenger
+    p = ctx.prepared
+    nw = fp.n_words(curve.field)
+    pt_bytes = 3 * 4 * nw
+    full = 1 << (p.c - 1)
+    s = torch.from_numpy(batch.view(np.int16)).to(dev)
+    digits = pippenger.sw_digits(curve, p.c, s, aff.inf)
+    ws = pippenger.window_groups(curve, p.c, digits.shape[0], full)[full]
+    runs = pippenger.sort_windows(digits[torch.tensor(ws, device=dev)], full)
+    del digits
+    out = []
+
+    def row(name, replaces, fn, plain, reps, mulmods, n_bytes, **shape):
+        ms = timed(fn, reps)
+        t0 = time.time()
+        ref = plain()
+        torch.cuda.synchronize()
+        plain_ms = (time.time() - t0) * 1e3
+        err = max_abs_err(fn(), ref)
+        if err != 0:
+            raise AssertionError(f"{name} != plain at the SW path's shapes")
+        b_ms, b_by = bound_ms(mulmods, n_bytes)
+        out.append({"name": name, "route": "cuda",
+                    "source": "zprize_tpu_torch/csrc/msm_sw.cu",
+                    "replaces": replaces, "launches": launches[name],
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                    **shape})
+        log(f"{name} {shape}: {ms:.4f} ms (plain {plain_ms:.1f} ms, bound "
+            f"{b_ms:.4f} ms by {b_by}), kernel == plain")
+        return ref
+
+    points = int(runs[3].sum())          # the points of buckets 1..full
+    lanes = len(ws) * full
+    sums = row("sw_gather_accumulate", "zprize_tpu/msm/accum_kernel.py:60",
+               lambda: ak.sw_gather_accumulate(curve, p.x, p.y, *runs),
+               lambda: ak.sw_gather_accumulate_plain(curve, p.x, p.y,
+                                                     *runs),
+               5, points * MULMODS["sw_madd"],
+               points * (2 * 4 * nw + 8 + 4) + lanes * (16 + pt_bytes),
+               windows=len(ws), buckets=full, points=points,
+               also_replaces=["zprize_tpu/msm/accum_kernel.py:252",
+                              "zprize_tpu/msm/accum_kernel.py:304"])
+    del runs
+    # one step of the merge scan: (columns, bits, windows) lanes, on the
+    # bucket sums just made
+    lanes = min(full, 128) * full.bit_length() * len(ws)
+    flat = sums.reshape(-1, 3, nw)
+    idx = torch.arange(lanes, device=dev)
+    acc, q = flat[idx % flat.shape[0]], flat[(idx + 1) % flat.shape[0]]
+    skip = torch.zeros(lanes, dtype=torch.int32, device=dev)
+    row("sw_full_add", "zprize_tpu/msm/accum_kernel.py:138",
+        lambda: ak.sw_full_add(curve, acc.clone(), q, skip),
+        lambda: ak.sw_full_add_plain(curve, acc.clone(), q, skip), 20,
+        lanes * MULMODS["sw_add"], lanes * (3 * pt_bytes + 4), lanes=lanes)
+    return out
 
 
 def check_ntt(dev):
@@ -1152,7 +1508,7 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from zprize_tpu_torch.curve.spec import BLS12_377_G1
+    from zprize_tpu_torch.curve.spec import BLS12_377_G1, BLS12_381_G1
     from zprize_tpu_torch.plonk import prover
     from zprize_tpu_torch.utils import build
 
@@ -1173,6 +1529,11 @@ def main():
     curve = BLS12_377_G1
     for lanes in (4096, 1000):
         check_kernels_random(curve, dev, lanes)
+    t0 = time.time()
+    for sw_curve in (BLS12_381_G1, BLS12_377_G1):
+        for lanes in (4096, 1000):
+            check_sw_kernels(sw_curve, dev, lanes)
+    log(f"phase 3d: {time.time() - t0:.1f} s")
     check_ntt(dev)
     check_gl_ntt(dev)
     # phase 8 runs before the MSM phases: late in a run, after their large
@@ -1181,6 +1542,14 @@ def main():
     gl_x, gl_launches, goldilocks = goldilocks_path(dev)
     gl_kernel_row = gl_row(gl_x, gl_launches, dev)
     del gl_x
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    sw_ctx, sw_aff, sw_batch, sw_launches, sw_msm = sw_path(dev)
+    sw_msm["profile"] = profile_msm(sw_ctx, sw_batch)
+    sw_kernel_rows = sw_rows(BLS12_381_G1, sw_ctx, sw_aff, sw_batch,
+                             sw_launches, dev)
+    log(f"phase 9: {time.time() - t0:.1f} s")
+    del sw_ctx, sw_aff
     torch.cuda.empty_cache()
     ctx, aff, batch, launches, summary = main_path(curve, dev)
     summary["profile"] = profile_msm(ctx, batch)
@@ -1197,10 +1566,12 @@ def main():
         pk, wires, public, blinding_rng=random.Random(18)))
     kernels.append(ntt_row(pk, plonk_launches, dev))
     kernels.append(gl_kernel_row)
+    kernels.extend(sw_kernel_rows)
     print(json.dumps(summary), flush=True)
     print(json.dumps(prize), flush=True)
     print(json.dumps(plonk), flush=True)
     print(json.dumps(goldilocks), flush=True)
+    print(json.dumps(sw_msm), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"chip_smoke total: {time.time() - start_s:.1f} s")
     print(card, flush=True)

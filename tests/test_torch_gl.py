@@ -63,8 +63,10 @@ def _columns(log_n, b, seed):
 
 @pytest.fixture(scope="module")
 def reference_runs():
-    """The reference's Pallas NTTs in interpret mode, three calls in all:
-    ntt_packed at 2^8 x 2 forward and inverse, ntt_fourstep_packed(5, 5)."""
+    """The reference's Pallas NTTs in interpret mode, four calls in all:
+    ntt_packed at 2^8 x 2 forward and inverse, ntt_fourstep_packed(5, 5),
+    and ntt_fourstep_packed(13, 1), whose column pass is above the
+    2^12 tile."""
     rows = _columns(8, 2, 5)
     lo, hi = _planes(rows)
     flo, fhi = ref_gk.ntt_packed(8, jnp.asarray(lo), jnp.asarray(hi),
@@ -75,9 +77,14 @@ def reference_runs():
     vlo, vhi = _planes(vec)
     slo, shi = ref_gk.ntt_fourstep_packed(5, 5, jnp.asarray(vlo),
                                           jnp.asarray(vhi), interpret=True)
+    big = _lazy_values(1 << 14, 7)
+    blo, bhi = _planes(big)
+    tlo, thi = ref_gk.ntt_fourstep_packed(13, 1, jnp.asarray(blo),
+                                          jnp.asarray(bhi), interpret=True)
     return {"rows": (lo, hi), "forward": _ref_ints(flo, fhi),
             "inverse": _ref_ints(ilo, ihi), "vec": (vlo, vhi),
-            "fourstep": _ref_ints(slo, shi)}
+            "fourstep": _ref_ints(slo, shi), "big": (blo, bhi),
+            "fourstep_13_1": _ref_ints(tlo, thi)}
 
 
 @pytest.mark.parametrize("name", ["add", "sub", "mul"])
@@ -163,6 +170,15 @@ def test_fourstep_packed_matches_reference(reference_runs):
     assert torch.equal(out, gl_kernel.ntt_fourstep_packed(3, 7, x, "cpu"))
 
 
+def test_fourstep_column_pass_above_the_tile_matches_reference(
+        reference_runs):
+    """A 2^13-point column pass goes through the recursive split and then
+    the step twiddle, as the reference's does."""
+    x = convert.gl_from_reference(*reference_runs["big"], "cpu")
+    out = gl_kernel.ntt_fourstep_packed(13, 1, x, "cpu")
+    assert gl_ops.to_ints(out) == reference_runs["fourstep_13_1"]
+
+
 def test_generic_fourstep_matches_reference():
     rng = random.Random(7)
     xs = [rng.randrange(Q) for _ in range(1 << 10)]
@@ -243,10 +259,6 @@ def test_wrapper_checks_its_input():
     with pytest.raises(ValueError, match="unsupported device"):
         gl_kernel.gl_ntt(torch.empty((8, 2), dtype=torch.int64,
                                      device="meta"), 3)
-    with pytest.raises(ValueError, match="column pass"):
-        gl_kernel.ntt_fourstep_packed(13, 1, torch.zeros(1 << 14,
-                                                         dtype=torch.int64),
-                                      "cpu")
     with pytest.raises(TypeError):
         gl_kernel.ntt_packed(3, np.zeros((8, 1), np.int64), device="cpu")
     with pytest.raises(ValueError, match="domain tables"):

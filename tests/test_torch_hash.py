@@ -83,17 +83,46 @@ def test_hash_many_and_merkle_verify():
         merkle.build_tree(CFG, leaves[:3])
 
 
-def test_merkle_root_of_8_leaves_matches_reference():
+# the reference's merkle.build_tree on `_merkle_leaves()`, levels 1-3
+# (about 9 s of JAX compile here); test_pinned_merkle_tree_is_the_references
+# re-derives them
+REF_TREE_8 = [
+    [0x0992E6778B8ABAE928C298027D1623C43BF1BD7AC4FF432D1C1084CAC0F80E2E,
+     0x0EBCF2727CDA1C4E559A8947AACA8B53C492CCF75ACD05D9A81A52E70DA46F2D,
+     0x0F0063029657BF99B86C679F34D839C2273EB6C8C7ABED756A87CBEFBA6EDBEB,
+     0x03B3BB81DB74E342DB40079B0E42B1F40C1C828399CEF2063D8D3698884060D2],
+    [0x0E673B01798164982F4F4FD20574059CEDD0D31BE18802483858226E1BE74DD8,
+     0x07571607E73A944F95984118500CDDE897C8566C88F90F4B30D9A3BA4C10F4B3],
+    [0x0379B458E5375F50634D22B3803DED7D4E24FFDCBA84A397D5E3A62BB57D5287],
+]
+
+
+def _merkle_leaves():
     rng = random.Random(12)
-    leaves = [rng.randrange(FR.p) for _ in range(8)]
+    return [rng.randrange(FR.p) for _ in range(8)]
+
+
+def test_merkle_root_of_8_leaves_matches_reference():
+    """Every node of the port's tree over 8 leaves, and the proof of leaf
+    5, against the reference's (pinned)."""
+    leaves = _merkle_leaves()
+    levels = merkle.build_tree(CFG, fp.from_ints(FR, leaves))
+    assert [_ints(level) for level in levels] == [leaves] + REF_TREE_8
+    # the reference's prove: each level's sibling, and whether it is the
+    # left one
+    assert [(_ints(s), r) for s, r in merkle.prove(levels, 5)] == [
+        ([leaves[4]], False), ([REF_TREE_8[0][3]], True),
+        ([REF_TREE_8[1][0]], False)]
+
+
+@pytest.mark.slow
+def test_pinned_merkle_tree_is_the_references():
+    leaves = _merkle_leaves()
     ref_levels = ref_merkle.build_tree(
         ref_config(REF_FR, 2), jnp.asarray(ref_fp.from_ints_np(REF_FR, leaves)))
-    levels = merkle.build_tree(CFG, fp.from_ints(FR, leaves))
-    assert len(levels) == len(ref_levels) == 4
-    for ours, theirs in zip(levels, ref_levels):
-        assert _ints(ours) == [int(v) for v in
-                               ref_fp.to_ints(REF_FR, theirs).reshape(-1)]
-    path = merkle.prove(levels, 5)
-    ref_path = ref_merkle.prove(ref_levels, 5)
-    assert [(_ints(s), r) for s, r in path] == [
-        ([int(ref_fp.to_ints(REF_FR, s)[()])], r) for s, r in ref_path]
+    assert [[int(v) for v in ref_fp.to_ints(REF_FR, level).reshape(-1)]
+            for level in ref_levels] == [leaves] + REF_TREE_8
+    assert [(int(ref_fp.to_ints(REF_FR, s)[()]), r)
+            for s, r in ref_merkle.prove(ref_levels, 5)] == [
+        (leaves[4], False), (REF_TREE_8[0][3], True),
+        (REF_TREE_8[1][0], False)]

@@ -1,8 +1,8 @@
 """The port stands alone: every module imports with jax blocked, no source
 names jax or the reference package, and without a card the default-device
-entry points (the MSM's, the test SRS's, the NTT domain's, the Poseidon
-sponge's, the Goldilocks NTT's and the converters') and chip_smoke.py
-refuse to run."""
+entry points (the MSM's on both routes, the test SRS's on both curves, the
+NTT domain's, the Poseidon sponge's, the Goldilocks NTT's and the
+converters') and chip_smoke.py refuse to run."""
 
 import pathlib
 import shutil
@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from zprize_tpu_torch import convert
-from zprize_tpu_torch.curve.spec import BLS12_377_G1
+from zprize_tpu_torch.curve.spec import BLS12_377_G1, BLS12_381_G1
 from zprize_tpu_torch.hash import poseidon
 from zprize_tpu_torch.hash.grain import snarkvm_config
 from zprize_tpu_torch.msm import api
@@ -57,24 +57,26 @@ def test_sources_name_neither_jax_nor_the_reference_package():
     files = [p for p in PKG.rglob("*")
              if p.suffix in (".py", ".cu", ".cuh") and "_build" not in p.parts]
     files.append(ROOT / "chip_smoke.py")
-    assert len(files) >= 47
+    assert len(files) >= 48     # 41 modules, 5 CUDA sources, chip_smoke
     for path in files:
         text = path.read_text()
         assert "zprize_tpu." not in text, path
         assert "jax" not in text.lower(), path
 
 
-@pytest.mark.parametrize("entry", ["msm_init", "test_srs", "domain",
-                                   "sponge", "gl_ntt"])
+@pytest.mark.parametrize("entry", ["msm_init", "msm_init_bls12_381",
+                                   "test_srs", "test_srs_bls12_381",
+                                   "domain", "sponge", "gl_ntt"])
 def test_default_device_entry_point_requires_a_card(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        if entry == "msm_init":
-            api.multi_scalar_mult_init(BLS12_377_G1, [(BLS12_377_G1.gen_x,
-                                                       BLS12_377_G1.gen_y)])
-        elif entry == "test_srs":
-            kzg.setup_test_srs(BLS12_377_G1, 4)
+        if entry.startswith("msm_init"):
+            curve = BLS12_381_G1 if entry.endswith("381") else BLS12_377_G1
+            api.multi_scalar_mult_init(curve, [(curve.gen_x, curve.gen_y)])
+        elif entry.startswith("test_srs"):
+            curve = BLS12_381_G1 if entry.endswith("381") else BLS12_377_G1
+            kzg.setup_test_srs(curve, 4)
         elif entry == "domain":
             Domain(BLS12_377_G1.scalar, 3)
         elif entry == "sponge":

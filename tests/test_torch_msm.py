@@ -29,6 +29,13 @@ torch.set_num_threads(1)
 
 IDENT = 3
 
+# the reference package's collapsed MSM (prepare_points(collapse=True),
+# then msm: about 24 s of JAX compile and run here) on `_inputs(256, 11)`;
+# test_pinned_reference_msm_at_256 re-derives it
+REF_XY_256 = (
+    0x002202FDCF91F6095FF930F66E91EA7E1310D7E03D28D4C11E616053F5A157FB3D1EF58CFD9A0031D1667333296B3743,
+    0x00705566583A9B33D9247368DF71D5115F64CDE061F8482909182BF8B5D35E189EB2D8BDBA97403FCDEBA89FE7000D06)
+
 
 def _inputs(n, seed):
     pts = oracle.generator_chain(CURVE, n)
@@ -40,39 +47,51 @@ def _inputs(n, seed):
     return pts, scalars, oracle.chain_msm(CURVE, ints)
 
 
-@pytest.fixture(scope="module")
-def slice_256():
-    """n = 2^8 (c = 11, g = 1, m = 24: the triangle merge): the port's
-    context and result, and the reference package's collapsed MSM."""
-    pts, scalars, expect = _inputs(256, 11)
-    ctx = api.multi_scalar_mult_init(CURVE, pts, device="cpu")
-    ours = api.multi_scalar_mult(ctx, scalars)[0]
-    ref_aff = ref_sw.Affine(
+def _ref_affine(pts):
+    return ref_sw.Affine(
         ref_fp.from_ints(REF_CURVE.field, [0 if p is None else p[0]
                                            for p in pts]),
         ref_fp.from_ints(REF_CURVE.field, [1 if p is None else p[1]
                                            for p in pts]),
         jnp.asarray([p is None for p in pts]))
-    ref_prep = ref_pippenger.prepare_points(REF_CURVE, ref_aff,
-                                            collapse=True)
-    ref_res = ref_pippenger.msm(REF_CURVE, ref_aff, jnp.asarray(scalars),
-                               prepared=ref_prep)
-    ref_res = ref_sw.to_affine(REF_CURVE, ref_res)
-    ref_xy = (int(ref_fp.to_ints(REF_CURVE.field, ref_res.x)[()]),
-              int(ref_fp.to_ints(REF_CURVE.field, ref_res.y)[()]))
-    return ctx, scalars, ours, ref_prep, ref_xy, expect
+
+
+@pytest.fixture(scope="module")
+def slice_256():
+    """n = 2^8 (c = 11, g = 1, m = 24: the triangle merge): the port's
+    context and result."""
+    pts, scalars, expect = _inputs(256, 11)
+    ctx = api.multi_scalar_mult_init(CURVE, pts, device="cpu")
+    ours = api.multi_scalar_mult(ctx, scalars)[0]
+    return ctx, scalars, ours, expect
 
 
 def test_slice_matches_reference_at_256(slice_256):
-    ctx, _, ours, ref_prep, ref_xy, expect = slice_256
+    ctx, _, ours, expect = slice_256
     p = ctx.prepared
-    assert (p.c, p.g, p.m) == (ref_prep.c, ref_prep.g, ref_prep.m) == (
+    assert (p.c, p.g, p.m) == ref_pippenger.plan_collapse(REF_CURVE, 256) == (
         11, 1, 24)
-    assert sw.to_affine_ints(CURVE, ours) == ref_xy == expect
+    assert sw.to_affine_ints(CURVE, ours) == REF_XY_256 == expect
+
+
+@pytest.mark.slow
+def test_pinned_reference_msm_at_256():
+    pts, scalars, _ = _inputs(256, 11)
+    ref_aff = _ref_affine(pts)
+    ref_prep = ref_pippenger.prepare_points(REF_CURVE, ref_aff,
+                                            collapse=True)
+    assert (ref_prep.c, ref_prep.g, ref_prep.m) == (11, 1, 24)
+    ref_res = ref_sw.to_affine(REF_CURVE, ref_pippenger.msm(
+        REF_CURVE, ref_aff, jnp.asarray(scalars), prepared=ref_prep))
+    assert (int(ref_fp.to_ints(REF_CURVE.field, ref_res.x)[()]),
+            int(ref_fp.to_ints(REF_CURVE.field, ref_res.y)[()])) == REF_XY_256
 
 
 def test_table_carried_from_reference_gives_same_msm(slice_256):
-    ctx, scalars, ours, ref_prep, _, _ = slice_256
+    ctx, scalars, ours, _ = slice_256
+    pts, _, _ = _inputs(256, 11)
+    ref_prep = ref_pippenger.prepare_points(REF_CURVE, _ref_affine(pts),
+                                            collapse=True)
     carried = convert.prepared_from_reference(
         CURVE, np.asarray(ref_prep.packed), ref_prep.c, ref_prep.g,
         ref_prep.m, ref_prep.n, device="cpu")
@@ -137,9 +156,12 @@ def test_signed_digits_match_reference(c):
 
 
 def test_unported_routes_raise():
-    """The m = 1 plans now build their table (the route is held in
-    test_torch_msm_m1.py); the SW route and the jittable forms raise,
-    naming their ROADMAP item."""
+    """Every MSM route of the reference now runs in the port: the m = 1
+    plans build their table (held in test_torch_msm_m1.py), a curve with
+    no TE form (BLS12-381) takes the SW route, and the jittable forms run
+    on the SW kernels (held in test_torch_msm_sw.py), here as far as their
+    occupancy guard.  What still raises: te=True on a curve with no TE
+    form."""
     pts = oracle.generator_chain(CURVE, 16)
     aff = sw.Affine(fp.from_ints(CURVE.field, [p[0] for p in pts]),
                     fp.from_ints(CURVE.field, [p[1] for p in pts]),
@@ -149,9 +171,15 @@ def test_unported_routes_raise():
     prep = pippenger.prepare_points(CURVE, aff, c=8, budget_bytes=1)
     assert (prep.c, prep.g, prep.m) == (8, 33, 1)       # budget -> m = 1
     assert tuple(prep.table.shape) == (16, 3, 12)
-    with pytest.raises(NotImplementedError, match="short-Weierstrass"):
-        api.multi_scalar_mult_init(BLS12_381_G1, [], device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        pippenger.msm_jit_static(CURVE, aff, None)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        pippenger.msm_jit_batch(CURVE, aff, None)
+    pts381 = oracle.generator_chain(BLS12_381_G1, 16)
+    ctx = api.multi_scalar_mult_init(BLS12_381_G1, pts381, device="cpu")
+    assert isinstance(ctx.prepared, pippenger.PreparedSw)
+    assert ctx.prepared.c == 4 and ctx.prepared.x.shape == (16, 12)
+    with pytest.raises(ValueError, match="no twisted-Edwards form"):
+        api.multi_scalar_mult_init(BLS12_381_G1, pts381, device="cpu",
+                                   te=True)
+    equal = torch.ones((16, CURVE.scalar.n_limbs), dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="occupancy"):
+        pippenger.msm_jit_static(CURVE, aff, equal, 4, 2)
+    with pytest.raises(RuntimeError, match="occupancy"):
+        pippenger.msm_jit_batch(CURVE, aff, equal[None], 4, 2)

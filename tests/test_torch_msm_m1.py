@@ -65,12 +65,28 @@ def _ref_affine(pt):
              int(y) * pow(int(z), P - 2, P) % P) for x, y, z in zip(xs, ys, zs)]
 
 
-def test_slice_matches_reference_streamed_msm_and_oracle(monkeypatch):
+# the reference's streamed m = 1 MSM, one window a chunk (about 20 s of
+# JAX compile and run here), on `_inputs(64, 21)`;
+# test_pinned_reference_streamed_msm re-derives it
+REF_XY_STREAMED = (
+    0x008D56A8B876A897BCCC2B5A22B2BD6E10AD110625571D47CB9C1BA74D4BAD229FE9CFBB0607EE2AE7F9B0BAAD5DE28A,
+    0x003A58EBFCEE8548A63E071618F248531EF5BD6601F17CC57FC3AAE8A6F997CD4085C1B8163B0E519F8406A960F8FAB2)
+
+
+def _ref_points(pts):
+    f = REF_CURVE.field
+    return ref_sw.Affine(
+        ref_fp.from_ints(f, [0 if q is None else q[0] for q in pts]),
+        ref_fp.from_ints(f, [1 if q is None else q[1] for q in pts]),
+        jnp.asarray([q is None for q in pts]))
+
+
+def test_slice_matches_reference_streamed_msm_and_oracle():
     """n = 2^6 with c = 4 (both packages' default window for an m = 1
     init of 64 points): the port's API in chunks of 16 windows, the
-    reference's streamed route one window a chunk, and the oracle agree,
-    and the reference's m = 1 table carried across equals the port's.
-    This is the file's one reference MSM."""
+    reference's streamed route one window a chunk (pinned), and the
+    oracle agree, and the reference's m = 1 table carried across equals
+    the port's."""
     n = 64
     pts, scalars, expect = _inputs(n, 21)
     budget = 16 * pippenger.window_bytes(n, 8)
@@ -84,22 +100,10 @@ def test_slice_matches_reference_streamed_msm_and_oracle(monkeypatch):
     ours = api.multi_scalar_mult(ctx, scalars)
     assert len(ours) == 1
 
-    # the reference's streamed route runs when its (n_win, n) digit
-    # planes pass ZPRIZE_STREAM_GB; at this size, one window per chunk
-    monkeypatch.setenv("ZPRIZE_STREAM_GB", "1e-9")
-    f = REF_CURVE.field
-    ref_aff = ref_sw.Affine(
-        ref_fp.from_ints(f, [0 if q is None else q[0] for q in pts]),
-        ref_fp.from_ints(f, [1 if q is None else q[1] for q in pts]),
-        jnp.asarray([q is None for q in pts]))
-    ref_prep = ref_pippenger.prepare_points(REF_CURVE, ref_aff,
+    assert sw.to_affine_ints(CURVE, ours[0]) == REF_XY_STREAMED == expect
+    ref_prep = ref_pippenger.prepare_points(REF_CURVE, _ref_points(pts),
                                             collapse=False)
     assert (ref_prep.c, ref_prep.g, ref_prep.m) == (4, 65, 1)
-    ref_res = ref_sw.to_affine(REF_CURVE, ref_pippenger.msm(
-        REF_CURVE, ref_aff, jnp.asarray(scalars), prepared=ref_prep))
-    ref_xy = (int(ref_fp.to_ints(f, ref_res.x)[()]),
-              int(ref_fp.to_ints(f, ref_res.y)[()]))
-    assert sw.to_affine_ints(CURVE, ours[0]) == ref_xy == expect
 
     # the reference's m = 1 table carried across is the port's, word for
     # word, so the port's MSM over it is the result above
@@ -107,6 +111,22 @@ def test_slice_matches_reference_streamed_msm_and_oracle(monkeypatch):
         CURVE, np.asarray(ref_prep.packed), 4, 65, 1, n, device="cpu")
     assert carried[1:] == p[1:]
     assert torch.equal(carried.table, p.table)
+
+
+@pytest.mark.slow
+def test_pinned_reference_streamed_msm(monkeypatch):
+    pts, scalars, _ = _inputs(64, 21)
+    # the reference's streamed route runs when its (n_win, n) digit
+    # planes pass ZPRIZE_STREAM_GB; at this size, one window per chunk
+    monkeypatch.setenv("ZPRIZE_STREAM_GB", "1e-9")
+    ref_aff = _ref_points(pts)
+    ref_prep = ref_pippenger.prepare_points(REF_CURVE, ref_aff,
+                                            collapse=False)
+    ref_res = ref_sw.to_affine(REF_CURVE, ref_pippenger.msm(
+        REF_CURVE, ref_aff, jnp.asarray(scalars), prepared=ref_prep))
+    f = REF_CURVE.field
+    assert (int(ref_fp.to_ints(f, ref_res.x)[()]),
+            int(ref_fp.to_ints(f, ref_res.y)[()])) == REF_XY_STREAMED
 
 
 def test_gather_accumulate_plain_matches_reference():

@@ -4,10 +4,10 @@ values compare as canonical ints, points as affine ints."""
 
 import random
 
-import numpy as np
 import pytest
 import torch
 
+from zprize_tpu_torch.curve import sw
 from zprize_tpu_torch.curve.spec import BLS12_377_G1
 from zprize_tpu_torch.field import fp
 from zprize_tpu_torch.msm import pippenger
@@ -147,5 +147,17 @@ def test_open_and_verify(srs):
 
 
 def test_commit_batch_names_its_queue_item(srs):
-    with pytest.raises(NotImplementedError, match="Queue 1, item 11"):
-        kzg.commit_batch(srs, np.zeros((2, 4, 8)))
+    """commit_batch, once refused naming its ROADMAP item, runs (through
+    msm_jit_batch on the SW kernels): row 0 equals commit (the TE route),
+    row 1 python ints, and too long a row is refused."""
+    rows = [_coeffs(10, 5), _coeffs(10, 6)]
+    coms = kzg.commit_batch(srs, fp.from_ints(FR, rows))
+    assert coms.x.shape == (2, 12)
+    got = [kzg.point_ints(CURVE, sw.Point(*(a[b] for a in coms)))
+           for b in range(2)]
+    assert got[0] == kzg.point_ints(CURVE, kzg.commit(
+        srs, fp.from_ints(FR, rows[0])))
+    k = sum(c * pow(srs.tau, i, R) for i, c in enumerate(rows[1])) % R
+    assert got[1] == oracle.ec_mul(oracle.generator(CURVE), k, CURVE.field.p)
+    with pytest.raises(ValueError, match="larger than the SRS"):
+        kzg.commit_batch(srs, fp.from_ints(FR, [[1] * 15]), shift=2)

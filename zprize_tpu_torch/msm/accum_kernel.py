@@ -1,15 +1,17 @@
-"""The five twisted-Edwards MSM kernels: wrappers, launch counts and plain
-versions.
+"""The seven MSM kernels, five twisted-Edwards and two short-Weierstrass:
+wrappers, launch counts and plain versions.
 
 Each wrapper takes int32 Montgomery-word tensors (layouts in
-``csrc/msm_te.cu``: points ``(L, 4, n_words)``, operand rows
-``(R, 3, n_words)``), checks device, dtype, shape and contiguity, and
+``csrc/msm_te.cu``: TE points ``(L, 4, n_words)``, operand rows
+``(R, 3, n_words)``; in ``csrc/msm_sw.cu``: SW points ``(L, 3, n_words)``,
+affine coordinate planes ``(n, n_words)``), checks device, dtype, shape
+and contiguity, and
 
-* on CUDA tensors launches its hand-written kernel from ``csrc/msm_te.cu``
-  on the current stream, adds one to ``launches[name]``, and raises if the
-  launch failed;
+* on CUDA tensors launches its hand-written kernel on the current stream,
+  adds one to ``launches[name]``, and raises if the launch failed;
 * on CPU tensors runs its plain version, the same op sequence vectorised
-  over lanes in plain PyTorch (``curve/te.py`` on ``field/fp.py``).
+  over lanes in plain PyTorch (``curve/te.py`` or ``curve/sw.py`` on
+  ``field/fp.py``).
 
 The plain versions are public (``*_plain``) so that a run on the card can
 hold each kernel against them bit for bit.
@@ -21,6 +23,8 @@ hold each kernel against them bit for bit.
 | te_gather_accumulate  | make_te_mixed_add (+ the rank loop of accumulate_te_pallas) |
 | te_full_add           | make_te_full_add                                         |
 | te_combine            | make_te_combine                                          |
+| sw_gather_accumulate  | make_mixed_add, make_mixed_add_multi, make_mixed_add_rect (+ their rank loops) |
+| sw_full_add           | make_full_add                                            |
 """
 
 from __future__ import annotations
@@ -30,12 +34,14 @@ import functools
 
 import torch
 
-from ..curve import te
+from ..curve import sw, te
 from ..curve.spec import CurveSpec
 from ..field import fp
 
-KERNELS = ("te_dbl_chain", "te_bucket_accumulate", "te_gather_accumulate",
-           "te_full_add", "te_combine")
+TE_KERNELS = ("te_dbl_chain", "te_bucket_accumulate",
+              "te_gather_accumulate", "te_full_add", "te_combine")
+SW_KERNELS = ("sw_gather_accumulate", "sw_full_add")
+KERNELS = TE_KERNELS + SW_KERNELS
 
 # launches of each kernel since the last reset_launches()
 launches = dict.fromkeys(KERNELS, 0)
@@ -58,7 +64,7 @@ def _lib() -> ctypes.CDLL:
                                          ll, vp]
     lib.te_full_add.argtypes = [vp, vp, vp, vp, vp, ll, vp]
     lib.te_combine.argtypes = [vp, vp, vp, ci, ll, ci, vp]
-    for name in KERNELS:
+    for name in TE_KERNELS:
         getattr(lib, name).restype = ci
     lib.msm_te_error_string.argtypes = [ci]
     lib.msm_te_error_string.restype = ctypes.c_char_p
@@ -66,17 +72,43 @@ def _lib() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def device_params(curve: CurveSpec, device: torch.device) -> torch.Tensor:
+def _sw_lib() -> ctypes.CDLL:
+    """The SW kernel library, built from the checkout at first use."""
+    from ..utils import build
+    lib = build.load("msm_sw")
+    vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.sw_gather_accumulate.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ll,
+                                         ll, ll, vp]
+    lib.sw_full_add.argtypes = [vp, vp, vp, vp, ll, vp]
+    for name in SW_KERNELS:
+        getattr(lib, name).restype = ci
+    lib.msm_sw_error_string.argtypes = [ci]
+    lib.msm_sw_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _params(f, k: int, device: torch.device) -> torch.Tensor:
     """The constants tensor of ``csrc/fq.cuh``: p, R mod p, R^2 mod p,
-    k = 2d (Montgomery form) and -p^-1 mod 2^32, as int32 words."""
-    f = curve.field
+    the curve constant k (Montgomery form) and -p^-1 mod 2^32, as int32
+    words."""
     mp = fp.montgomery_params(f)
     words = [fp.raw_words(f, mp["p"]), fp.raw_words(f, mp["one"]),
-             fp.raw_words(f, mp["r2"]),
-             fp.constant(f, te.te_params(curve).k),
+             fp.raw_words(f, mp["r2"]), fp.constant(f, k),
              torch.tensor([mp["n0"] - (1 << 32) * (mp["n0"] >> 31)],
                           dtype=torch.int32)]
     return torch.cat(words).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def device_params(curve: CurveSpec, device: torch.device) -> torch.Tensor:
+    """The TE kernels' constants: k = 2d."""
+    return _params(curve.field, te.te_params(curve).k, device)
+
+
+@functools.lru_cache(maxsize=None)
+def sw_params(curve: CurveSpec, device: torch.device) -> torch.Tensor:
+    """The SW kernels' constants: k = 3b."""
+    return _params(curve.field, curve.b3, device)
 
 
 def _on_card(*tensors: torch.Tensor) -> bool:
@@ -107,8 +139,9 @@ def _check(name: str, t: torch.Tensor, tail: tuple, dtype=torch.int32
 def _launch(name: str, rc: int) -> None:
     launches[name] += 1
     if rc != 0:
-        msg = _lib().msm_te_error_string(rc).decode()
-        raise RuntimeError(f"{name} launch failed: cuda error {rc} ({msg})")
+        lib = _sw_lib() if name.startswith("sw_") else _lib()
+        err = getattr(lib, f"msm_{name[:2]}_error_string")(rc).decode()
+        raise RuntimeError(f"{name} launch failed: cuda error {rc} ({err})")
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -321,3 +354,110 @@ def te_combine_plain(curve: CurveSpec, window_sums: torch.Tensor, c: int
             acc = te.dbl(curve, acc)
         acc = te.add(curve, acc, te.unpack(window_sums[w]))
     return te.pack(acc)
+
+
+# ---------------------------------------------------------------------------
+# sw_gather_accumulate
+# ---------------------------------------------------------------------------
+
+
+def sw_gather_accumulate(curve: CurveSpec, px: torch.Tensor,
+                         py: torch.Tensor, perm: torch.Tensor,
+                         sign: torch.Tensor, starts: torch.Tensor,
+                         counts: torch.Tensor) -> torch.Tensor:
+    """SW bucket sums of W windows read through an index into the affine
+    coordinate planes.
+
+    px, py (n, nw) hold the points; perm (W, n) int64 lists, per window,
+    the point indices sorted by bucket, and sign (W, n) int32 marks (in
+    the same sorted order) the points to subtract.  Bucket b of window w
+    is the run perm[w, starts[w, b] : starts[w, b] + counts[w, b]]
+    (starts, counts (W, nbe) int64).  Returns the (W, nbe, 3, nw)
+    projective sums, each starting from the identity (0 : 1 : 0)."""
+    nw = fp.n_words(curve.field)
+    _check("px", px, (nw,))
+    if px.dim() != 2:
+        raise ValueError(f"px: expected (n, {nw}), got {tuple(px.shape)}")
+    _check("py", py, tuple(px.shape))
+    if perm.dim() != 2 or starts.dim() != 2:
+        raise ValueError(f"perm, starts: expected (W, n) and (W, nbe), got "
+                         f"{tuple(perm.shape)} and {tuple(starts.shape)}")
+    n_win, nbe = starts.shape
+    _check("perm", perm, (n_win, px.shape[0]), torch.int64)
+    _check("sign", sign, tuple(perm.shape))
+    _check("starts", starts, (n_win, nbe), torch.int64)
+    _check("counts", counts, (n_win, nbe), torch.int64)
+    if not _on_card(px, py, perm, sign, starts, counts):
+        return sw_gather_accumulate_plain(curve, px, py, perm, sign, starts,
+                                          counts)
+    if px.data_ptr() % 16 or py.data_ptr() % 16:
+        raise ValueError("px, py: the kernel reads 16-byte aligned rows")
+    out = torch.empty((n_win, nbe, 3, nw), dtype=torch.int32,
+                      device=px.device)
+    rc = _sw_lib().sw_gather_accumulate(
+        sw_params(curve, px.device).data_ptr(), px.data_ptr(), py.data_ptr(),
+        perm.data_ptr(), sign.data_ptr(), starts.data_ptr(),
+        counts.data_ptr(), out.data_ptr(), px.shape[0], nbe, n_win * nbe,
+        _stream(px))
+    _launch("sw_gather_accumulate", rc)
+    return out
+
+
+def sw_accumulate_ranks(curve: CurveSpec, px: torch.Tensor, py: torch.Tensor,
+                        perm: torch.Tensor, sign: torch.Tensor,
+                        starts: torch.Tensor, counts: torch.Tensor,
+                        rank0: int, cap: int) -> sw.Point:
+    """Ranks rank0 .. rank0 + cap - 1 of every bucket run (arguments as
+    `sw_gather_accumulate`), rank by rank over all W * nbe lanes on the
+    plain engine: each rank gathers one point per lane through perm and
+    takes one complete mixed add, and a lane whose run has ended (or not
+    begun) keeps its sum (the point's inf flag, not an identity operand,
+    so the projective result equals the kernel's walk)."""
+    f = curve.field
+    acc = sw.identity(curve, tuple(starts.shape), px.device)
+    for r in range(rank0, rank0 + cap):
+        valid = r < counts
+        pos = (starts + r).clamp(max=perm.shape[1] - 1)
+        idx = perm.gather(1, pos)
+        ay = py[idx]
+        ay = fp.select(sign.gather(1, pos) != 0, fp.neg(f, ay), ay)
+        acc = sw.add_mixed(curve, acc, sw.Affine(px[idx], ay, ~valid))
+    return acc
+
+
+def sw_gather_accumulate_plain(curve: CurveSpec, px: torch.Tensor,
+                               py: torch.Tensor, perm: torch.Tensor,
+                               sign: torch.Tensor, starts: torch.Tensor,
+                               counts: torch.Tensor) -> torch.Tensor:
+    """Every rank of every run (`sw_accumulate_ranks` up to the largest
+    count), packed as the kernel's output."""
+    depth = int(counts.max()) if counts.numel() else 0
+    return sw.pack(sw_accumulate_ranks(curve, px, py, perm, sign, starts,
+                                       counts, 0, depth))
+
+
+# ---------------------------------------------------------------------------
+# sw_full_add
+# ---------------------------------------------------------------------------
+
+
+def sw_full_add(curve: CurveSpec, acc: torch.Tensor, q: torch.Tensor,
+                skip: torch.Tensor) -> torch.Tensor:
+    """acc += q per lane over (L, 3, nw), in place (q may be acc itself: a
+    doubling); lanes with skip != 0 keep acc.  Returns acc."""
+    _check("acc", acc, (3, fp.n_words(curve.field)))
+    _check("q", q, tuple(acc.shape))
+    _check("skip", skip, tuple(acc.shape[:-2]))
+    if not _on_card(acc, q, skip):
+        return sw_full_add_plain(curve, acc, q, skip)
+    rc = _sw_lib().sw_full_add(sw_params(curve, acc.device).data_ptr(),
+                               acc.data_ptr(), q.data_ptr(), skip.data_ptr(),
+                               skip.numel(), _stream(acc))
+    _launch("sw_full_add", rc)
+    return acc
+
+
+def sw_full_add_plain(curve: CurveSpec, acc: torch.Tensor, q: torch.Tensor,
+                      skip: torch.Tensor) -> torch.Tensor:
+    s = sw.pack(sw.add(curve, sw.unpack(acc), sw.unpack(q)))
+    return acc.copy_(torch.where((skip != 0)[..., None, None], acc, s))

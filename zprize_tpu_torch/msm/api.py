@@ -22,31 +22,33 @@ from . import pippenger
 
 @dataclasses.dataclass
 class MsmContext:
-    """Device-resident preprocessed points: `prepared` holds the TE point
-    table built once at init (untimed); its window width is
-    `prepared.c`.  The MSM reads only the points' infinity flags after
-    init, so `points` keeps those and empty coordinate planes (at 2^26
-    the coordinates would hold 6.4 GB).  `window_budget` bounds the bytes
-    of the m = 1 route's windows in flight (None: from the card's free
-    memory)."""
+    """Device-resident preprocessed points: `prepared` holds what init
+    built once (untimed), the TE point table or, on the SW route, the
+    affine planes; its window width is `prepared.c`.  Beyond that the MSM
+    reads only the points' infinity flags, so `points` keeps those and
+    empty coordinate planes (at 2^26 the coordinates would hold 6.4 GB).
+    `window_budget` bounds the bytes of the m = 1 TE route's windows in
+    flight (None: from the card's free memory)."""
     curve: CurveSpec
     points: sw.Affine
-    prepared: pippenger.PreparedTe
+    prepared: pippenger.PreparedTe | pippenger.PreparedSw
     window_budget: int | None = None
 
     @property
     def device(self) -> torch.device:
-        return self.prepared.table.device
+        return self.prepared.device
 
 
 def multi_scalar_mult_init(curve: CurveSpec, points_xy,
                            window_bits: int | None = None,
                            device=None, collapse: bool = True,
-                           window_budget: int | None = None) -> MsmContext:
+                           window_budget: int | None = None,
+                           te: bool | None = None) -> MsmContext:
     """points_xy: python int pairs [(x, y) | None], or an `sw.Affine` of
-    Montgomery word planes.  Builds the table once, on `device`, with the
-    plan of `pippenger.prepare_points` (m = 1 from 2^24 points, or with
-    `collapse=False`)."""
+    Montgomery word planes.  Prepares them once, on `device`, through
+    `pippenger.prepare_points`: the TE route wherever the curve has a TE
+    form unless `te=False` (the table's plan: m = 1 from 2^24 points, or
+    with `collapse=False`), else the SW route."""
     dev = resolve_device(device)
     if isinstance(points_xy, sw.Affine):
         aff = sw.Affine(*(a.to(dev) for a in points_xy))
@@ -59,7 +61,7 @@ def multi_scalar_mult_init(curve: CurveSpec, points_xy,
                          dev),
             torch.tensor([p is None for p in points_xy], device=dev))
     prepared = pippenger.prepare_points(curve, aff, window_bits,
-                                        collapse=collapse)
+                                        collapse=collapse, te=te)
     empty = aff.x.new_empty((0, aff.x.shape[-1]))
     return MsmContext(curve, sw.Affine(empty, empty, aff.inf), prepared,
                       window_budget)
@@ -79,7 +81,7 @@ def _limbs(batch) -> torch.Tensor:
 def multi_scalar_mult(ctx: MsmContext, scalars) -> list[sw.Point]:
     """Batched MSM: scalars (batch, n, L) or (n, L) canonical base-2^15
     limb planes (torch or numpy, e.g. the uint16 compact form); returns one
-    SW projective result per batch.  Each batch moves to the card on its
+    SW projective result (host words) per batch.  Each batch moves to the card on its
     own, just before its MSM."""
     if scalars.ndim == 2:
         scalars = scalars[None]

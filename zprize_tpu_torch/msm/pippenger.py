@@ -1,10 +1,13 @@
-"""Pippenger bucket-method MSM over BLS12-377 G1 in twisted-Edwards form.
+"""Pippenger bucket-method MSM: the twisted-Edwards routes (BLS12-377 G1)
+and the short-Weierstrass route (any a = 0 curve; BLS12-381 G1).
 
-Two routes, chosen by the plan (c, g, m) of `plan_collapse` (the
-reference package's choice: m > 1 below 2^23 points, m = 1 from 2^24), or
-m = 1 when the caller asks for no collapse.
+`prepare_points` picks the route: TE wherever the curve has a TE form,
+unless the caller passes te=False (the reference package's ZPRIZE_TE=0);
+SW otherwise.  The TE routes are chosen by the plan (c, g, m) of
+`plan_collapse` (the reference package's choice: m > 1 below 2^23
+points, m = 1 from 2^24), or m = 1 when the caller asks for no collapse.
 
-The collapsed route (m > 1):
+The collapsed TE route (m > 1):
 
 1. init: the window-collapse table of m multiples 2^(c*g*j)·P
    (`te_path.prepare_points_collapsed`, kernel `te_dbl_chain`);
@@ -14,7 +17,7 @@ The collapsed route (m > 1):
    runs by `torch.searchsorted`) and summed per bucket (kernel
    `te_bucket_accumulate`).
 
-The m = 1 route (`window_sums_m1`):
+The m = 1 TE route (`window_sums_m1`):
 
 1. init: one operand per point (`te_path.prepare_points`, in blocks);
 2. windows in chunks, as many in flight as the memory plan allows
@@ -28,9 +31,24 @@ below 1024 buckets; kernels `te_full_add` and `te_combine`), the window
 combine (kernel `te_combine`) and the exact TE->SW conversion of the
 single result on the host.
 
-Routes not in this port yet raise NotImplementedError naming their queue
-in ROADMAP.md: the short-Weierstrass route (BLS12-381 G1) and the
-jittable batch forms.
+The SW route (`msm_sw`; c = `default_window_bits(n)`, no table: init
+keeps the affine planes):
+
+1. signed digits of every window, zero for points at infinity;
+2. windows grouped by the bucket count their digits need
+   (`window_groups`); per group, one sort of each window by |digit|
+   (`sort_windows`) and the bucket sums of all its windows in one launch
+   of `sw_gather_accumulate`, reading the points through the permutation
+   (a group with runs far above a full window's mean, such as the narrow
+   top windows, is cut into slices of the points first: `window_sums_sw`);
+3. the bit-decomposed bucket merge (`merge_buckets_all`) and the window
+   combine (`combine_windows`), both on `sw_full_add` (a doubling is the
+   complete add of a point to itself).
+
+`msm_jit_static` and `msm_jit_batch` are the reference's fixed-shape SW
+forms (two window groups, an occupancy cap that raises when exceeded);
+`msm_jit_batch` puts all B x n_win full-width windows of a batch in one
+`sw_gather_accumulate` launch.
 """
 
 from __future__ import annotations
@@ -45,10 +63,13 @@ from ..curve.spec import CurveSpec
 from ..field import fp
 from ..field.spec import BASE_BITS
 from . import te_path
-from .accum_kernel import te_bucket_accumulate, te_gather_accumulate
+from .accum_kernel import (sw_accumulate_ranks, sw_full_add,
+                           sw_gather_accumulate, te_bucket_accumulate,
+                           te_gather_accumulate)
 
-_SW_ROUTE = ("the short-Weierstrass MSM route is not ported yet: "
-             "ROADMAP.md Queue 1, item 11")
+# the largest window the digit extraction takes: a window spans at most
+# three base-2^15 limbs (18 at BASE_BITS = 15)
+C_MAX = 32 - BASE_BITS + 1
 
 
 def default_window_bits(n: int) -> int:
@@ -119,13 +140,32 @@ def scalar_limbs(curve: CurveSpec, words: torch.Tensor) -> torch.Tensor:
 
 
 class PreparedTe(typing.NamedTuple):
-    """Init-stage preprocessing: `table` (m*n, 3, nw) holds the
-    precomputed operands of the m blocks 2^(c*g*j)·P, row j*n + i."""
+    """Init-stage preprocessing of the TE routes: `table` (m*n, 3, nw)
+    holds the precomputed operands of the m blocks 2^(c*g*j)·P, row
+    j*n + i."""
     table: torch.Tensor
     c: int
     g: int                 # bucket sets after collapse
     m: int                 # stored multiples per point
     n: int                 # original point count
+
+    @property
+    def device(self) -> torch.device:
+        return self.table.device
+
+
+class PreparedSw(typing.NamedTuple):
+    """The SW route's init: the affine coordinate planes (n, nw) that the
+    accumulate reads through the sort permutation, and the window width.
+    No table is built (the reference returns no handle here)."""
+    x: torch.Tensor
+    y: torch.Tensor
+    c: int
+    n: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.x.device
 
 
 def plan_collapse(curve: CurveSpec, n: int, c: int | None = None,
@@ -143,10 +183,9 @@ def plan_collapse(curve: CurveSpec, n: int, c: int | None = None,
     row_bytes = 3 * h * 4
     m_cap = max(1, budget_bytes // max(1, n * row_bytes))
     best = None
-    c_max = 32 - BASE_BITS + 1          # 18 at BASE_BITS=15
-    c_range = [c] if c else range(8, c_max + 1)
-    if not all(8 <= cc <= c_max for cc in c_range):
-        raise ValueError(f"window bits must lie in [8, {c_max}], got {c}")
+    c_range = [c] if c else range(8, C_MAX + 1)
+    if not all(8 <= cc <= C_MAX for cc in c_range):
+        raise ValueError(f"window bits must lie in [8, {C_MAX}], got {c}")
     for cc in c_range:
         w = num_windows(curve, cc)
         m = min(m_cap, w)
@@ -165,23 +204,42 @@ def plan_collapse(curve: CurveSpec, n: int, c: int | None = None,
     return best[1], best[2], best[3]
 
 
-def require_te(curve: CurveSpec) -> None:
-    """Raise NotImplementedError for a curve with no twisted-Edwards form."""
+def has_te_form(curve: CurveSpec) -> bool:
     try:
         te.te_params(curve)
-    except ValueError as exc:
-        raise NotImplementedError(f"{curve.name}: {_SW_ROUTE}") from exc
+    except ValueError:
+        return False
+    return True
+
+
+def use_te(curve: CurveSpec, te_route: bool | None) -> bool:
+    """Whether the MSM takes a TE route: `te_route`, or by default
+    whenever the curve has a TE form; te_route=True on a curve with none
+    raises ValueError."""
+    has = has_te_form(curve)
+    if te_route and not has:
+        raise ValueError(f"{curve.name} has no twisted-Edwards form: use "
+                         "the short-Weierstrass route (te=False)")
+    return has if te_route is None else te_route
 
 
 def prepare_points(curve: CurveSpec, points: sw.Affine, c: int | None = None,
-                   budget_bytes: int | None = None,
-                   collapse: bool = True) -> PreparedTe:
-    """Preprocess a fixed point set for repeated MSMs (the untimed init):
-    TE conversion and the point table.  With `collapse` the plan of
-    `plan_collapse` decides; without, c = `c` or `default_window_bits(n)`
-    and m = 1 (the reference's ZPRIZE_PRECOMPUTE=0)."""
-    require_te(curve)
+                   budget_bytes: int | None = None, collapse: bool = True,
+                   te: bool | None = None) -> PreparedTe | PreparedSw:
+    """Preprocess a fixed point set for repeated MSMs (the untimed init).
+
+    On a TE route (`use_te`): TE conversion and the point table; with
+    `collapse` the plan of `plan_collapse` decides, without, c = `c` or
+    `default_window_bits(n)` and m = 1 (the reference's
+    ZPRIZE_PRECOMPUTE=0).  On the SW route: the affine planes and c = `c`
+    or `default_window_bits(n)`; `budget_bytes` and `collapse` do not
+    apply."""
     n = points.x.shape[0]
+    if not use_te(curve, te):
+        c = c or default_window_bits(n)
+        if not 2 <= c <= C_MAX:
+            raise ValueError(f"window bits must lie in [2, {C_MAX}], got {c}")
+        return PreparedSw(points.x.contiguous(), points.y.contiguous(), c, n)
     if collapse:
         c, g, m = plan_collapse(curve, n, c, budget_bytes)
     else:
@@ -196,17 +254,23 @@ def prepare_points(curve: CurveSpec, points: sw.Affine, c: int | None = None,
 
 
 def msm(curve: CurveSpec, points: sw.Affine, scalars: torch.Tensor,
-        c: int | None = None, prepared: PreparedTe | None = None,
-        window_budget: int | None = None) -> sw.Point:
+        c: int | None = None, prepared: PreparedTe | PreparedSw | None = None,
+        window_budget: int | None = None, cap: int | None = None,
+        te: bool | None = None) -> sw.Point:
     """sum_i scalars[i] * points[i] for canonical scalar limb planes
     (n, L) (base 2^15, limbs < 2^15: the benchmark's compact form, also
-    as its int16 view).  Only points.inf is read when `prepared` is given.
-    `window_budget` bounds the bytes the m = 1 route's windows in flight
-    may hold (default: from the card's free memory; no bound on the CPU);
-    the result does not depend on it."""
-    require_te(curve)
+    as its int16 view), as a projective point of host words.  Only
+    points.inf is read when `prepared` is given; without it `c` and `te`
+    go to `prepare_points`.  `window_budget` bounds the bytes the m = 1
+    TE route's windows in flight may hold (default: from the card's free
+    memory; no bound on the CPU).  `cap` is the reference's per-pass
+    occupancy cap, kept for API parity: every bucket run is walked whole.
+    The result depends on neither."""
     if prepared is None:
-        prepared = prepare_points(curve, points, c)
+        prepared = prepare_points(curve, points, c, te=te)
+    if isinstance(prepared, PreparedSw):
+        return sw.Point(*msm_sw(curve, prepared, points.inf,
+                                scalars).cpu().unbind(-2))
     if prepared.m == 1:
         sums = window_sums_m1(curve, prepared, points.inf, scalars,
                               window_budget)
@@ -367,11 +431,252 @@ def _te_result_host(curve: CurveSpec, combined: torch.Tensor) -> sw.Point:
     return sw.Point(*(fp.from_ints(f, [v])[0] for v in (sx, sy, sz)))
 
 
-def msm_jit_static(*args, **kwargs):
-    raise NotImplementedError("msm_jit_static (the fixed-shape SW MSM) is "
-                              "not ported yet: ROADMAP.md Queue 1, item 11")
+# ---------------------------------------------------------------------------
+# the short-Weierstrass route
+# ---------------------------------------------------------------------------
 
 
-def msm_jit_batch(*args, **kwargs):
-    raise NotImplementedError("msm_jit_batch (batched commits) is not "
-                              "ported yet: ROADMAP.md Queue 1, item 11")
+def _check_inputs(n: int, scalars: torch.Tensor, inf: torch.Tensor) -> None:
+    if tuple(scalars.shape[-2:-1]) != (n,) or tuple(inf.shape) != (n,):
+        raise ValueError(f"expected {n} scalars and infinity flags, got "
+                         f"{tuple(scalars.shape)} and {tuple(inf.shape)}")
+
+
+def sw_digits(curve: CurveSpec, c: int, scalars: torch.Tensor,
+              inf: torch.Tensor) -> torch.Tensor:
+    """Signed digits of every window of every batch: scalars (..., n, L)
+    limb planes -> (batch * n_win, n) int32, row b * n_win + w, zero for
+    points at infinity."""
+    n_win = num_windows(curve, c)
+    n = scalars.shape[-2]
+    rows = []
+    for s in scalars.reshape(-1, *scalars.shape[-2:]):
+        carry = torch.zeros(n, dtype=torch.int32, device=s.device)
+        digits, _ = signed_digits_range(curve, c, 0, n_win,
+                                        s.t().contiguous(), carry)
+        rows.append(digits.masked_fill_(inf, 0))
+    return torch.cat(rows)
+
+
+def bucket_counts_all(c: int, digits: torch.Tensor):
+    """The reference's bucket grouping of every window at once: digits
+    (W, n) -> (perm (W, n), the indices stably sorted by |digit|; starts
+    and counts (W, 2^(c-1) + 1), the run of each bucket 0..2^(c-1); the
+    largest count of buckets 1.. per window (W,))."""
+    key, perm = torch.sort(digits.abs(), dim=1, stable=True)
+    ids = torch.arange((1 << (c - 1)) + 1, dtype=key.dtype,
+                       device=key.device).expand(key.shape[0], -1)
+    starts = torch.searchsorted(key, ids.contiguous())
+    counts = torch.searchsorted(key, ids.contiguous(), right=True) - starts
+    return perm, starts, counts, counts[:, 1:].amax(dim=1)
+
+
+def accumulate_pass_all(curve: CurveSpec, c: int, cap: int, px, py,
+                        digits: torch.Tensor, perm: torch.Tensor,
+                        starts: torch.Tensor, counts: torch.Tensor,
+                        n_buckets_eff: int | None = None,
+                        rank0: int = 0) -> sw.Point:
+    """The reference's plain accumulate (its jittable path) on the plain
+    engine: bucket sums over ranks rank0 .. rank0 + cap - 1 of every run
+    of buckets 1..n_buckets_eff, in the grouping of `bucket_counts_all`,
+    as a (W, n_buckets_eff) projective point.  The route itself runs
+    `sw_gather_accumulate`, which walks every run whole."""
+    nbe = n_buckets_eff or 1 << (c - 1)
+    sign = (digits.gather(1, perm) < 0).to(torch.int32)
+    return sw_accumulate_ranks(curve, px, py, perm, sign,
+                               starts[:, 1:nbe + 1], counts[:, 1:nbe + 1],
+                               rank0, cap)
+
+
+def _sum_rows(curve: CurveSpec, pts: torch.Tensor) -> torch.Tensor:
+    """Tree-reduce points (m, ..., 3, nw) along axis 0 in place (log-depth
+    `sw_full_add` launches: the last half onto the first, the middle row
+    of an odd count riding along); returns the sum (..., 3, nw)."""
+    m = pts.shape[0]
+    skip = torch.zeros(pts[0].shape[:-2].numel(), dtype=torch.int32,
+                       device=pts.device)
+    flat = pts.reshape(m, -1, *pts.shape[-2:])
+    while m > 1:
+        half = m // 2
+        sw_full_add(curve, flat[:half].reshape(-1, *pts.shape[-2:]),
+                    flat[m - half:m].reshape(-1, *pts.shape[-2:]),
+                    skip.repeat(half))
+        m -= half
+    return pts[0]
+
+
+def merge_buckets_all(curve: CurveSpec, c: int, bucket_sums: torch.Tensor
+                      ) -> torch.Tensor:
+    """sum_b b*B_b per window by bit decomposition (the reference's
+    `merge_buckets_pallas`): bucket_sums (W, nbe, 3, nw) -> (W, 3, nw).
+
+    The per-bit sums S_j = sum of the buckets whose id has bit j run as a
+    scan over groups of up to 128 bucket columns: one `sw_full_add` launch
+    a group over (column, bit, window) lanes, a lane skipping the buckets
+    that lack its bit; then a tree over the columns, and the fold
+    sum_j 2^j S_j as a combine with c = 1."""
+    n_win, nbe = bucket_sums.shape[:2]
+    tail = bucket_sums.shape[-2:]
+    dev = bucket_sums.device
+    n_bits = max(1, nbe.bit_length())
+    steps = max(1, nbe // 128)
+    cols = nbe // steps
+    ids = torch.arange(1, nbe + 1, device=dev).reshape(steps, cols)
+    bits = torch.arange(n_bits, device=dev)
+    skip = (((ids[:, :, None] >> bits) & 1) == 0).to(torch.int32)
+    acc = sw.pack(sw.identity(curve, (cols, n_bits, n_win), dev))
+    flat = acc.reshape(-1, *tail)
+    for t in range(steps):
+        q = bucket_sums[:, t * cols:(t + 1) * cols].transpose(0, 1)
+        q = q[:, None].expand(cols, n_bits, n_win, *tail)
+        sk = skip[t][:, :, None].expand(cols, n_bits, n_win)
+        sw_full_add(curve, flat, q.reshape(-1, *tail).contiguous(),
+                    sk.reshape(-1).contiguous())
+    return combine_windows(curve, 1, _sum_rows(curve, acc))
+
+
+def combine_windows(curve: CurveSpec, c: int, window_sums: torch.Tensor
+                    ) -> torch.Tensor:
+    """sum_w 2^(c*w) W_w per lane, MSB-first: window_sums (S, L, 3, nw) ->
+    (L, 3, nw); c doublings (the complete add of the accumulator to
+    itself) and one add per window, each one `sw_full_add` launch."""
+    acc = window_sums[-1].clone(memory_format=torch.contiguous_format)
+    skip = torch.zeros(acc.shape[0], dtype=torch.int32, device=acc.device)
+    for w in range(window_sums.shape[0] - 2, -1, -1):
+        for _ in range(c):
+            sw_full_add(curve, acc, acc, skip)
+        sw_full_add(curve, acc, window_sums[w].contiguous(), skip)
+    return acc
+
+
+# `window_sums_sw` cuts a crowded window's points into at most this many
+# slices, and leaves runs of up to this many points whole (a slice costs
+# a sort and a merge of its own)
+_MAX_SLICES = 16
+_MIN_RUN = 64
+
+
+def window_sums_sw(curve: CurveSpec, c: int, px: torch.Tensor,
+                   py: torch.Tensor, digits: torch.Tensor,
+                   groups: dict[int, list[int]], cap: int | None = None,
+                   caller: str = "msm") -> torch.Tensor:
+    """Window sums sum_b b*B_b of digit rows (R, n): per group {nbe: rows},
+    one sort of each row by |digit|, the bucket sums of all the group's
+    rows in one `sw_gather_accumulate` launch, and the merge.  With `cap`,
+    a full-width bucket (nbe = 2^(c-1)) holding more than `cap` points
+    raises (the reference's occupancy contract).  Returns (R, 3, nw).
+
+    One thread walks a bucket's whole run, so a group whose longest run
+    is far above a full window's mean (the narrow top windows, whose few
+    buckets share all n points; skewed scalars) would leave the launch to
+    a few serial threads.  Such a group's points are cut into up to
+    `_MAX_SLICES` slices, each a digit row of its own (the digits of the
+    other slices zeroed): runs shrink by that factor, and the slices'
+    window sums add up to the window's.  A group is cut when its longest
+    run exceeds twice a full window's mean run and `_MIN_RUN`."""
+    n = digits.shape[1]
+    dev = digits.device
+    target = max(_MIN_RUN, 2 * (n >> (c - 1)))
+    out = [None] * digits.shape[0]
+    for nbe, rows in groups.items():
+        rows_d = digits[torch.tensor(rows, device=dev)]
+        runs = sort_windows(rows_d, nbe)
+        longest = int(runs[3].max())
+        if cap is not None and nbe == 1 << (c - 1) and longest > cap:
+            raise RuntimeError(
+                f"{caller}: bucket occupancy {longest} exceeds cap_total "
+                f"{cap} (the reference would drop points)")
+        slices = max(1, min(_MAX_SLICES, -(-longest // target)))
+        if slices > 1:
+            owner = torch.arange(n, device=dev) * slices // n
+            mine = owner == torch.arange(slices, device=dev)[:, None]
+            runs = sort_windows(torch.where(mine, rows_d[:, None], 0)
+                                .reshape(-1, n), nbe)
+        del rows_d
+        merged = merge_buckets_all(
+            curve, c, sw_gather_accumulate(curve, px, py, *runs))
+        del runs
+        if slices > 1:
+            merged = _sum_rows(curve, merged.reshape(
+                len(rows), slices, *merged.shape[-2:]).transpose(0, 1)
+                .contiguous())
+        for k, r in enumerate(rows):
+            out[r] = merged[k]
+    return torch.stack(out)
+
+
+def msm_sw(curve: CurveSpec, prep: PreparedSw, inf: torch.Tensor,
+           scalars: torch.Tensor) -> torch.Tensor:
+    """The SW route: digits -> per window group sort, accumulate and
+    merge -> combine.  Returns the projective result (3, nw) on the
+    device."""
+    c, dev = prep.c, prep.device
+    _check_inputs(prep.n, scalars, inf)
+    n_win = num_windows(curve, c)
+    digits = sw_digits(curve, c, scalars.to(dev), inf.to(dev))
+    sums = window_sums_sw(curve, c, prep.x, prep.y, digits,
+                          window_groups(curve, c, n_win, 1 << (c - 1)))
+    return combine_windows(curve, c, sums[:, None])[0]
+
+
+def _two_groups(curve: CurveSpec, c: int, n_win: int
+                ) -> dict[int, list[int]]:
+    """The jittable forms' grouping: the full-width windows, and one
+    shared group of all narrower windows at the widest narrow width."""
+    full = 1 << (c - 1)
+    fine = window_groups(curve, c, n_win, full)
+    narrow = [(nbe, ws) for nbe, ws in fine.items() if nbe != full]
+    groups = {full: fine[full]} if full in fine else {}
+    if narrow:
+        groups[max(nbe for nbe, _ in narrow)] = sorted(
+            w for _, ws in narrow for w in ws)
+    return groups
+
+
+def _msm_fixed(curve: CurveSpec, points: sw.Affine, scalars: torch.Tensor,
+               c: int, cap_total: int, check_occupancy: bool,
+               caller: str) -> torch.Tensor:
+    """The fixed-shape SW MSM of a batch (B, n, L) -> (B, 3, nw) on the
+    points' device: the B x n_win windows stacked on one axis, so each of
+    the two groups is one accumulate launch and one merge for the whole
+    batch."""
+    n = points.x.shape[0]
+    dev = points.x.device
+    _check_inputs(n, scalars, points.inf)
+    if not 2 <= c <= C_MAX:
+        raise ValueError(f"window bits must lie in [2, {C_MAX}], got {c}")
+    bsz, n_win = scalars.shape[0], num_windows(curve, c)
+    digits = sw_digits(curve, c, scalars.to(dev), points.inf.to(dev))
+    groups = {nbe: [b * n_win + w for b in range(bsz) for w in ws]
+              for nbe, ws in _two_groups(curve, c, n_win).items()}
+    cap = cap_total if check_occupancy and cap_total < n else None
+    sums = window_sums_sw(curve, c, points.x.contiguous(),
+                          points.y.contiguous(), digits, groups, cap, caller)
+    sums = sums.reshape(bsz, n_win, *sums.shape[-2:]).transpose(0, 1)
+    return combine_windows(curve, c, sums)
+
+
+def msm_jit_static(curve: CurveSpec, points: sw.Affine, scalars: torch.Tensor,
+                   c: int, cap_total: int, check_occupancy: bool = True
+                   ) -> sw.Point:
+    """The reference's fixed-shape MSM: scalars (n, L) limb planes against
+    the affine points, on the SW kernels for any curve; a projective point
+    on the points' device.  The reference covers `cap_total` ranks per
+    bucket and drops the rest; here every run is walked whole, and with
+    `check_occupancy` (and cap_total < n) a full-width bucket over
+    `cap_total` still raises RuntimeError naming the occupancy, as the
+    reference does."""
+    return sw.unpack(_msm_fixed(curve, points, scalars[None], c, cap_total,
+                                check_occupancy, "msm_jit_static")[0])
+
+
+def msm_jit_batch(curve: CurveSpec, points: sw.Affine, scalars: torch.Tensor,
+                  c: int, cap_total: int, check_occupancy: bool = True
+                  ) -> sw.Point:
+    """Batched fixed-shape MSM: scalars (B, n, L) against one point set ->
+    a (B,)-lane projective point on the points' device.  The batch rides
+    the window axis, as in the reference: all B x n_win full-width
+    windows take one `sw_gather_accumulate` launch.  Same occupancy
+    contract as `msm_jit_static`."""
+    return sw.unpack(_msm_fixed(curve, points, scalars, c, cap_total,
+                                check_occupancy, "msm_jit_batch"))

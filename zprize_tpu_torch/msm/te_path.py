@@ -34,8 +34,7 @@ def _te_affine(curve: CurveSpec, x, y, inf):
     if bool(bad.any()):
         raise ValueError(
             "input contains exceptional points with no twisted-Edwards "
-            "image (the short-Weierstrass route is not ported yet: "
-            "ROADMAP.md Queue 1, item 11)")
+            "image; rerun with te=False for the short-Weierstrass route")
     return tx, ty
 
 

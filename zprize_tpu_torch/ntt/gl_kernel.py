@@ -170,27 +170,40 @@ def gl_ntt_plain(x: torch.Tensor, log_n: int, inverse: bool = False,
         t = hi if s == 1 else G.gl_mul(hi, pows[::n // m][:m // 2, None])
         y = torch.cat([G.gl_add(lo, t), G.gl_sub(lo, t)], dim=1).reshape(n, b)
     if step_log:
-        a, tb, split = _step_tables(log_n, step_log, inverse, x.device)
-        nlo, nhi = 1 << split, 1 << (step_log - split)
-        y = y.reshape(n, nhi, nlo, inner)
-        y = G.gl_mul(y, tb[:, None, :, None])
-        if a is not None:
-            y = G.gl_mul(y, a[:, :, None, None])
-        y = y.reshape(n, b)
+        y = _step_twiddle(y, log_n, step_log, inverse, inner)
     if scale is not None:
         y = G.gl_mul(y, G.const(scale, x.device))
     return y
 
 
+def _step_twiddle(y: torch.Tensor, log_n: int, step_log: int,
+                  inverse: bool, inner: int) -> torch.Tensor:
+    """Element (k1, col) of y (2^log_n, B) times w^(k1 j2), w the
+    2^(log_n + step_log)-th root (w^-1 for the inverse), j2 = col // inner,
+    from the two-level tables, on ``gl_ops``."""
+    n, b = y.shape
+    a, tb, split = _step_tables(log_n, step_log, inverse, y.device)
+    nlo, nhi = 1 << split, 1 << (step_log - split)
+    y = G.gl_mul(y.reshape(n, nhi, nlo, inner), tb[:, None, :, None])
+    if a is not None:
+        y = G.gl_mul(y, a[:, :, None, None])
+    return y.reshape(n, b)
+
+
 def _fourstep(log_n1: int, log_n2: int, x: torch.Tensor, inverse: bool,
               tile_log: int, scale: int | None) -> torch.Tensor:
-    """NTT over axis 0 of x (n1 n2, B), log_n1 <= TILE_LOG: the column
-    pass with the step twiddle fused, a transpose (a torch copy), then the
-    row pass, which takes the scale; the output index is k1 + n1 k2."""
+    """NTT over axis 0 of x (n1 n2, B): the column pass with the step
+    twiddle (fused into the store up to the tile; above it the recursive
+    `_ntt_axis0`, then `_step_twiddle`), a transpose (a torch copy), then
+    the row pass, which takes the scale; the output index is k1 + n1 k2."""
     n1, n2 = 1 << log_n1, 1 << log_n2
     b = x.shape[1]
-    c = gl_ntt(x.reshape(n1, n2 * b), log_n1, inverse, step_log=log_n2,
-               inner=b)
+    cols = x.reshape(n1, n2 * b)
+    if log_n1 <= tile_log:
+        c = gl_ntt(cols, log_n1, inverse, step_log=log_n2, inner=b)
+    else:
+        c = _step_twiddle(_ntt_axis0(log_n1, cols, inverse, tile_log, None),
+                          log_n1, log_n2, inverse, b)
     r = c.reshape(n1, n2, b).transpose(0, 1).contiguous().reshape(n2, n1 * b)
     return _ntt_axis0(log_n2, r, inverse, tile_log, scale).reshape(n1 * n2, b)
 
@@ -229,12 +242,9 @@ def ntt_packed(log_n: int, x: torch.Tensor, inverse: bool = False,
 def ntt_fourstep_packed(log_n1: int, log_n2: int, x: torch.Tensor,
                         device=None) -> torch.Tensor:
     """Forward NTT of x (2^(log_n1 + log_n2),) by the four-step split:
-    2^log_n1-point column transforms (log_n1 <= TILE_LOG) with the step
-    twiddle, then 2^log_n2-point row transforms; natural order, on `device`
-    (the card unless the caller asks for the CPU)."""
-    if not 0 <= log_n1 <= TILE_LOG:
-        raise ValueError(f"the column pass takes 2^0..2^{TILE_LOG} points, "
-                         f"not 2^{log_n1}")
+    2^log_n1-point column transforms with the step twiddle (split again
+    above TILE_LOG), then 2^log_n2-point row transforms; natural order, on
+    `device` (the card unless the caller asks for the CPU)."""
     n = 1 << (log_n1 + log_n2)
     x = _prepare(x, n, 1, device)
     return _fourstep(log_n1, log_n2, x.reshape(n, 1), False, TILE_LOG,

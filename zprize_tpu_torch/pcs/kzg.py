@@ -10,12 +10,14 @@ MSM over the SRS G1 powers; the opening witness is p(X) - p(z) divided by
 
 Coefficients are (n, n_words) Montgomery words of the scalar field;
 points come back as SW projective host words (`sw.Point`, what
-`pippenger.msm` returns) and are compared as affine ints (`point_ints`).
+`pippenger.msm` returns; `commit_batch` gives (B,) lanes on the device)
+and are compared as affine ints (`point_ints`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import random
 
 import numpy as np
@@ -25,7 +27,7 @@ from ..curve import sw, te
 from ..curve.spec import CurveSpec
 from ..field import fp
 from ..msm import pippenger
-from ..msm.accum_kernel import te_dbl_chain, te_full_add
+from ..msm.accum_kernel import sw_full_add, te_dbl_chain, te_full_add
 from ..pairing.host import g1_add, g1_mul, g1_neg, host_pairing
 from ..pairing.params import pairing_for_curve
 from ..poly import ops as poly_ops
@@ -63,9 +65,11 @@ class Srs:
                              f"than the SRS slice of {room}")
         return min(room, 1 << (n - 1).bit_length())
 
-    def prepared(self, length: int, shift: int = 0) -> pippenger.PreparedTe:
-        """The MSM preprocessing (TE conversion and window-collapse table)
-        of the SRS slice [shift, shift + length), built once: the analog of
+    def prepared(self, length: int, shift: int = 0
+                 ) -> pippenger.PreparedTe | pippenger.PreparedSw:
+        """The MSM preprocessing of the SRS slice [shift, shift + length)
+        (TE conversion and window-collapse table, or on a curve with no TE
+        form the SW route's affine planes), built once: the analog of
         the reference's cached per-size tables (`kzg.py:49`).  `shift > 0`
         is the shifted-powers slice of degree-bound commitments."""
         key = (shift, length)
@@ -76,6 +80,18 @@ class Srs:
 
     def slice(self, length: int, shift: int = 0) -> sw.Affine:
         return sw.Affine(*(a[shift:shift + length] for a in self.g1_powers))
+
+
+def _skip_bits(curve: CurveSpec, scalars: list[int], device
+               ) -> torch.Tensor:
+    """(n_bits, n) int32: 1 where bit b of scalars[i] is 0 (the skip mask
+    of a double-and-add), n_bits that of the group order."""
+    n = len(scalars)
+    n_bits = curve.order.bit_length()
+    raw = np.frombuffer(b"".join(k.to_bytes(32, "little") for k in scalars),
+                        np.uint8).reshape(n, 32)
+    bits = np.unpackbits(raw, axis=1, bitorder="little")[:, :n_bits]
+    return torch.from_numpy((1 - bits.T).astype(np.int32)).to(device)
 
 
 def scalar_mul_te(curve: CurveSpec, base: sw.Affine, scalars: list[int],
@@ -92,15 +108,29 @@ def scalar_mul_te(curve: CurveSpec, base: sw.Affine, scalars: list[int],
     one = fp.ones(f, tx.shape[:-1], device)
     g = te.pack(te.TePoint(tx, ty, one, fp.mul(f, tx, ty)))
     g = g.expand(n, *g.shape[-2:]).contiguous()
-    n_bits = curve.order.bit_length()
-    raw = np.frombuffer(b"".join(k.to_bytes(32, "little") for k in scalars),
-                        np.uint8).reshape(n, 32)
-    bits = np.unpackbits(raw, axis=1, bitorder="little")[:, :n_bits]
-    skip = torch.from_numpy((1 - bits.T).astype(np.int32)).to(device)
+    skip = _skip_bits(curve, scalars, device)
     acc = te.pack(te.identity(curve, (n,), device))
-    for b in range(n_bits - 1, -1, -1):
+    for b in range(skip.shape[0] - 1, -1, -1):
         acc = te_dbl_chain(curve, acc, 1)
         acc = te_full_add(curve, acc, g, skip[b].contiguous())
+    return acc
+
+
+def scalar_mul_sw(curve: CurveSpec, base: sw.Affine, scalars: list[int],
+                  device) -> torch.Tensor:
+    """k_i·base_i for every lane, as packed SW projective points
+    (n, 3, nw): the lane-parallel MSB-first double-and-add of
+    `sw.mul_scalar` on `sw_full_add`, two launches (p + p, then p + base
+    with the scalar bit as the skip mask) per bit of the group order."""
+    n = len(scalars)
+    g = sw.pack(sw.from_affine(curve, base))
+    g = g.expand(n, *g.shape[-2:]).contiguous()
+    skip = _skip_bits(curve, scalars, device)
+    dbl_skip = torch.zeros(n, dtype=torch.int32, device=device)
+    acc = sw.pack(sw.identity(curve, (n,), device))
+    for b in range(skip.shape[0] - 1, -1, -1):
+        sw_full_add(curve, acc, acc, dbl_skip)
+        sw_full_add(curve, acc, g, skip[b].contiguous())
     return acc
 
 
@@ -108,8 +138,9 @@ def setup_test_srs(curve: CurveSpec, size: int, seed: int = 0,
                    device=None) -> Srs:
     """Deterministic test SRS: tau from a seeded host RNG (the reference's
     `random.Random(seed ^ 0x5EED)`, so both packages make the same SRS),
-    tau^i·G for i < size on the device (`scalar_mul_te`, then one batched
-    inversion to SW affine), and the G2 side on the host."""
+    tau^i·G for i < size on the device (`scalar_mul_te` where the curve
+    has a TE form, else `scalar_mul_sw`; then one batched inversion to SW
+    affine), and the G2 side on the host."""
     dev = resolve_device(device)
     rng = random.Random(seed ^ 0x5EED)
     tau = rng.randrange(1, curve.order)
@@ -120,8 +151,12 @@ def setup_test_srs(curve: CurveSpec, size: int, seed: int = 0,
     gen = sw.Affine(fp.from_ints(f, [curve.gen_x], dev),
                     fp.from_ints(f, [curve.gen_y], dev),
                     torch.zeros(1, dtype=torch.bool, device=dev))
-    x, y, inf = te.te_to_sw_affine(curve, scalar_mul_te(curve, gen, pows,
-                                                        dev))
+    if pippenger.has_te_form(curve):
+        x, y, inf = te.te_to_sw_affine(curve, scalar_mul_te(curve, gen, pows,
+                                                            dev))
+    else:
+        x, y, inf = sw.to_affine(curve, sw.unpack(scalar_mul_sw(curve, gen,
+                                                                pows, dev)))
     hp = host_pairing(pairing_for_curve(curve))
     h = hp.g2_gen
     return Srs(curve, sw.Affine(x, y, inf), h, hp.g2_mul(h, tau), tau)
@@ -138,10 +173,29 @@ def commit(srs: Srs, coeffs: torch.Tensor, shift: int = 0) -> sw.Point:
                          prepared=srs.prepared(length, shift))
 
 
-def commit_batch(*args, **kwargs):
-    raise NotImplementedError("commit_batch (batched commits through "
-                              "msm_jit_batch) is not ported yet: ROADMAP.md "
-                              "Queue 1, item 11")
+def commit_batch(srs: Srs, coeffs: torch.Tensor, c: int | None = None,
+                 cap: int | None = None, shift: int = 0) -> sw.Point:
+    """Batched commit: coefficients (B, n, n_words) on the SRS's device ->
+    a (B,)-lane projective point on the device, one commitment per row,
+    through `pippenger.msm_jit_batch` (the windows of all B rows share
+    each accumulate launch).  `c` defaults to `default_window_bits(n)` and
+    `cap`, the occupancy bound whose excess raises, to four times the
+    uniform mean (at least 16), as in the reference; with `shift` each row
+    commits X^shift·p(X)."""
+    curve = srs.curve
+    bsz, n = coeffs.shape[:2]
+    if shift + n > srs.size:
+        raise ValueError(f"polynomial of {n} coefficients at shift {shift} "
+                         f"is larger than the SRS of {srs.size}")
+    if c is None:
+        c = pippenger.default_window_bits(n)
+    if cap is None:
+        mean = max(1, n // (1 << (c - 1)))
+        cap = max(16, 1 << math.ceil(math.log2(mean * 4 + 8)))
+    scalars = pippenger.scalar_limbs(curve, coeffs.reshape(bsz * n, -1))
+    return pippenger.msm_jit_batch(curve, srs.slice(n, shift),
+                                   scalars.reshape(bsz, n, -1), c,
+                                   min(cap, n))
 
 
 def open_at(srs: Srs, coeffs: torch.Tensor, z: torch.Tensor):

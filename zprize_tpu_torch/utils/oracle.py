@@ -9,6 +9,8 @@ multiplication: sum_i s_i·P_i = (sum_i s_i·(i+1) mod r)·G.
 
 from __future__ import annotations
 
+import random
+
 import numpy as np
 import torch
 
@@ -25,9 +27,9 @@ def ec_add(p, q, prime, a=0):
     if x1 == x2:
         if (y1 + y2) % prime == 0:
             return None
-        lam = (3 * x1 * x1 + a) * pow(2 * y1, prime - 2, prime) % prime
+        lam = (3 * x1 * x1 + a) * pow(2 * y1, -1, prime) % prime
     else:
-        lam = (y2 - y1) * pow(x2 - x1, prime - 2, prime) % prime
+        lam = (y2 - y1) * pow(x2 - x1, -1, prime) % prime
     x3 = (lam * lam - x1 - x2) % prime
     y3 = (lam * (x1 - x3) - y1) % prime
     return (x3, y3)
@@ -45,6 +47,14 @@ def ec_mul(p, k, prime, a=0):
 
 def generator(curve: CurveSpec):
     return (curve.gen_x, curve.gen_y)
+
+
+def subgroup_points(curve: CurveSpec, count: int, seed: int = 0) -> list:
+    """Seeded points of the prime-order subgroup: k·G for k drawn by
+    random.Random(seed).randrange(1, order), one after another."""
+    rng = random.Random(seed)
+    return [ec_mul(generator(curve), rng.randrange(1, curve.order),
+                   curve.field.p) for _ in range(count)]
 
 
 def generator_chain(curve: CurveSpec, n: int) -> list:
