@@ -11,7 +11,9 @@ In order, each phase raising on failure (so the exit code is non-zero):
    bit for bit, on random inputs (4096 lanes, and 1000, not a multiple of
    the 128-thread block; identity, doubling and edge-value lanes 0, 1, p-1;
    for te_gather_accumulate empty runs, runs of one, identity and
-   edge-value rows, negative signs);
+   edge-value rows, negative signs; for te_running_sum chunks of S = 8 and
+   16 points with an identity lane, a lane of one point repeated, whose
+   suffix sum doubles, and a lane of edge values);
 3b. holds the Fr NTT kernel against its plain version, bit for bit,
    forward and inverse, at n = 2, 8, 2^9, 2^10, 2^11 and 2^13 with B = 1 and
    3 rows (random inputs holding 0, 1 and p-1), and checks intt(ntt(a)) == a;
@@ -42,14 +44,19 @@ In order, each phase raising on failure (so the exit code is non-zero):
    table), a warm-up and 4 timed batches (CUDA events around each
    `multi_scalar_mult` call on scalars already on the card), every result
    checked against the oracle; each MSM must launch te_gather_accumulate,
-   te_full_add and te_combine, and neither te_bucket_accumulate nor
-   te_dbl_chain; then an m = 1 run at 2^12 with skewed scalars (all equal;
-   half zero, half equal), oracle-checked; then one profiled 2^26 MSM and
-   te_gather_accumulate's row at its main-path shape (window 0 of a 2^26
-   batch), timed beside its plain version and its bound and checked
-   against it;
+   te_full_add, te_running_sum and te_combine, and neither
+   te_bucket_accumulate nor te_dbl_chain (the te_full_add +
+   te_running_sum launches of one MSM are printed); then an m = 1 run at
+   2^12 with skewed scalars (all equal; half zero, half equal),
+   oracle-checked; then one profiled 2^26 MSM and the rows of the path's
+   kernels at the launches it makes, each timed beside its plain version
+   and its bound and checked against it: te_gather_accumulate over the
+   full windows of a 2^26 batch in one launch (and window 0 alone),
+   te_running_sum over the triangle merge's chunks of those bucket sums,
+   te_full_add at the merge's widest tree level;
 5. profiles one 2^18 MSM (device time by kernel, device idle share);
-6. times each MSM kernel of the 2^18 path at the shapes it gives them,
+6. times each MSM kernel of the 2^18 path that 4b's rows do not cover at
+   the shapes the path gives them,
    beside its plain version and the least time the card could take
    (integer multiplies or bytes, whichever bounds), and checks
    kernel == plain on those inputs too;
@@ -59,7 +66,7 @@ In order, each phase raising on failure (so the exit code is non-zero):
    `setup_test_srs(n + 8)` and `setup` on the card, a warm-up proof and 2
    timed proofs; every proof must verify, a proof with a tampered
    evaluation and one with a wrong public input must be rejected, and the
-   warm-up proof must have launched the Fr NTT and all four MSM kernels
+   warm-up proof must have launched the Fr NTT and all five MSM kernels
    (the timed ones every kernel but te_dbl_chain, whose tables the warm-up
    built); the host time of one proof's transcript; then one profiled
    proof (device time of each port kernel and of the torch ops) and the
@@ -148,12 +155,13 @@ PLONK_TIMED = 2
 # commits); the m = 1 route runs te_gather_accumulate instead of the
 # first two
 COLLAPSED_ROUTE = ("te_dbl_chain", "te_bucket_accumulate", "te_full_add",
-                   "te_combine")
+                   "te_running_sum", "te_combine")
 # each port kernel's CUDA entry points (csrc/), to find them in a profile
 KERNEL_SYMBOLS = {"te_dbl_chain": ("k_dbl_chain",),
                   "te_bucket_accumulate": ("k_bucket_accumulate",),
                   "te_gather_accumulate": ("k_gather_accumulate",),
                   "te_full_add": ("k_full_add",),
+                  "te_running_sum": ("k_running_sum",),
                   "te_combine": ("k_combine",),
                   "sw_gather_accumulate": ("k_sw_gather_accumulate",),
                   "sw_full_add": ("k_sw_full_add",),
@@ -238,6 +246,23 @@ def check_kernels_random(curve, dev, lanes):
     out = ak.te_combine(curve, ws, 2)
     results["te_combine"] = max_abs_err(
         out, ak.te_combine_plain(curve, ws, 2))
+
+    # te_running_sum: `lanes` chunks of S points drawn from pts and qs; an
+    # identity lane, an equal lane (the suffix sum doubles at every step)
+    # and a lane of edge values
+    pool = torch.cat([pts, qs])
+    for steps in (8, 16):
+        pick = torch.tensor([[rng.randrange(pool.shape[0])
+                              for _ in range(steps)] for _ in range(lanes)],
+                            device=dev)
+        chunks = pool[pick]
+        chunks[0] = ident
+        chunks[1] = pts[0]
+        chunks[2] = pts[2 + torch.arange(steps, device=dev) % 3]
+        t_out, u_out = ak.te_running_sum(curve, chunks)
+        t_ref, u_ref = ak.te_running_sum_plain(curve, chunks)
+        results[f"te_running_sum S={steps}"] = max(
+            max_abs_err(t_out, t_ref), max_abs_err(u_out, u_ref))
 
     n_rows = 4 * lanes
     rows = random_elems(fp, f, (n_rows, 3), rng, dev)
@@ -410,7 +435,7 @@ def main_path(curve, dev):
                              " route's te_gather_accumulate")
     if init_launches["te_dbl_chain"] == 0 or 0 in (
             per_msm["te_bucket_accumulate"], per_msm["te_full_add"],
-            per_msm["te_combine"]):
+            per_msm["te_running_sum"], per_msm["te_combine"]):
         raise AssertionError(f"init {init_launches} / MSM {per_msm} "
                              "launches miss a kernel")
     mean = sum(times) / len(times)
@@ -491,11 +516,15 @@ def prize_path(curve, dev):
     launches = dict(ak.launches)
     for k, launched in enumerate(per_msm, 1):
         if (0 in (launched["te_gather_accumulate"], launched["te_full_add"],
-                  launched["te_combine"])
+                  launched["te_running_sum"], launched["te_combine"])
                 or launched["te_bucket_accumulate"]
                 or launched["te_dbl_chain"]):
             raise AssertionError(f"2^{PRIZE_LOG} MSM {k} launches {launched}"
                                  " are not the m = 1 route's")
+    merge_launches = (per_msm[-1]["te_full_add"]
+                      + per_msm[-1]["te_running_sum"])
+    log(f"2^{PRIZE_LOG} MSM: te_full_add {per_msm[-1]['te_full_add']} + "
+        f"te_running_sum {per_msm[-1]['te_running_sum']} launches")
     peak = torch.cuda.max_memory_allocated()
     n_win = pippenger.num_windows(curve, p.c)
     in_flight = {nbe: pippenger.windows_in_flight(n, nbe, len(ws), dev)
@@ -512,6 +541,7 @@ def prize_path(curve, dev):
         "max_memory_allocated": peak,
         "launches_init": init_launches,
         "launches_per_msm": per_msm[-1],
+        "merge_launches_per_msm": merge_launches,
         "oracle_checked_batches": BATCHES + 1,
         "scalar_batch_host_s": gen_s,
     }
@@ -918,15 +948,7 @@ def kernel_rows(curve, ctx, aff, batch, launches, dev):
         r_rows * (pre_bytes + 4) + nbe * (16 + pt_bytes))
     sums = ak.te_bucket_accumulate(curve, *run)
 
-    # te_full_add: the triangle merge's W*C lanes
-    c_lanes, steps = te_path.triangle_split(p.g, nbe)
-    lanes = p.g * c_lanes
-    a, b = sums[:lanes].contiguous(), sums[lanes:2 * lanes].contiguous()
-    skip = torch.zeros(lanes, dtype=torch.int32, device=dev)
-    row("te_full_add", "zprize_tpu/msm/accum_kernel.py:791",
-        lambda: ak.te_full_add(curve, a, b, skip),
-        lambda: ak.te_full_add_plain(curve, a, b, skip), 20,
-        lanes * MULMODS["add"], lanes * (3 * pt_bytes + 4))
+    c_lanes, _ = te_path.triangle_split(p.g, nbe)
 
     # te_combine: the merge tail's c=1 fold over the chunk-weight bits.
     # These are g lanes of a serial fold, so the throughput bound below
@@ -942,44 +964,102 @@ def kernel_rows(curve, ctx, aff, batch, launches, dev):
     return rows
 
 
-def gather_row(curve, ctx, batch, launches, dev):
-    """te_gather_accumulate at its main-path shape, window 0 of a 2^26
-    batch (2^26 rows, 2^16 buckets): timed beside its plain version and
-    its bound, and checked against the plain version."""
+def prize_rows(curve, ctx, batch, launches, dev):
+    """The rows of the 2^26 path's kernels at the launches the path makes,
+    each timed beside its plain version and its bound and checked against
+    the plain version: te_gather_accumulate over the full windows of a
+    2^26 batch in one launch (as many as `windows_in_flight` allows; 15
+    when the card has room), and window 0 alone for continuity with the
+    earlier rows; te_running_sum over the triangle merge's chunks of those
+    bucket sums; te_full_add at the merge's widest tree level (the first
+    level of the chunk-weight bit sums).  The plain gather over all the
+    windows would take many minutes, so it runs on window 0: the launch's
+    lanes of window 0 are held against it, and its time is window 0's."""
     from zprize_tpu_torch.field import fp
     from zprize_tpu_torch.msm import accum_kernel as ak
-    from zprize_tpu_torch.msm import pippenger
+    from zprize_tpu_torch.msm import pippenger, te_path
     p = ctx.prepared
+    nw = fp.n_words(curve.field)
+    pt_bytes = 4 * 4 * nw
+    nbe = 1 << (p.c - 1)
+    n_full = len(pippenger.window_groups(
+        curve, p.c, pippenger.num_windows(curve, p.c), nbe)[nbe])
     limbs = torch.from_numpy(batch.view(np.int16)).to(dev).t().contiguous()
     carry = torch.zeros(p.n, dtype=torch.int32, device=dev)
-    digits, _ = pippenger.signed_digits_range(curve, p.c, 0, 1, limbs, carry)
+    n_win = pippenger.windows_in_flight(p.n, nbe, n_full, dev)
+    digits, _ = pippenger.signed_digits_range(curve, p.c, 0, n_win, limbs,
+                                              carry)
     del limbs, carry
-    nbe = 1 << (p.c - 1)
     runs = pippenger.sort_windows(digits, nbe)
     del digits
-    ms = timed(lambda: ak.te_gather_accumulate(curve, p.table, *runs), 3)
-    t0 = time.time()
-    ref = ak.te_gather_accumulate_plain(curve, p.table, *runs)
-    torch.cuda.synchronize()
-    plain_ms = (time.time() - t0) * 1e3
-    err = max_abs_err(ak.te_gather_accumulate(curve, p.table, *runs), ref)
-    if err != 0:
-        raise AssertionError("te_gather_accumulate != plain at the main-path "
-                             "shape")
-    rows = int(runs[3].sum())          # the rows of buckets 1..nbe
-    nw = fp.n_words(curve.field)
-    b_ms, b_by = bound_ms(rows * MULMODS["madd"],
-                          rows * (3 * 4 * nw + 8 + 4) + nbe * (16 + 16 * nw))
-    log(f"te_gather_accumulate at 2^{PRIZE_LOG} rows x {nbe} buckets: "
-        f"{ms:.4f} ms (plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms by "
-        f"{b_by}), kernel == plain")
-    return {"name": "te_gather_accumulate", "route": "cuda",
-            "source": "zprize_tpu_torch/csrc/msm_te.cu",
-            "replaces": "zprize_tpu/msm/accum_kernel.py:658",
-            "launches": launches["te_gather_accumulate"],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "rows": rows, "buckets": nbe}
+    one = [r[:1] for r in runs]                    # window 0 alone
+    rows = []
+
+    def row(name, replaces, fn, plain, ref_of, reps, mulmods, n_bytes,
+            **shape):
+        ms = timed(fn, reps)
+        t0 = time.time()
+        ref = plain()
+        torch.cuda.synchronize()
+        plain_ms = (time.time() - t0) * 1e3
+        out = fn()
+        err = max(max_abs_err(ref_of(o), r) for o, r in zip(
+            out if isinstance(out, tuple) else (out,),
+            ref if isinstance(ref, tuple) else (ref,)))
+        if err != 0:
+            raise AssertionError(f"{name} != plain at the 2^{PRIZE_LOG} "
+                                 "path's shapes")
+        b_ms, b_by = bound_ms(mulmods, n_bytes)
+        rows.append({"name": name, "route": "cuda",
+                     "source": "zprize_tpu_torch/csrc/msm_te.cu",
+                     "replaces": replaces, "launches": launches[name],
+                     "max_abs_err": err,
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": None, **shape})
+        log(f"{name} {shape}: {ms:.4f} ms (plain {plain_ms:.1f} ms, bound "
+            f"{b_ms:.4f} ms by {b_by}), kernel == plain")
+        return out
+
+    n_rows = int(runs[3].sum())        # the rows of buckets 1..nbe
+    one_rows = int(one[3].sum())
+    one_ms = timed(lambda: ak.te_gather_accumulate(curve, p.table, *one), 3)
+    sums = row("te_gather_accumulate", "zprize_tpu/msm/accum_kernel.py:658",
+               lambda: ak.te_gather_accumulate(curve, p.table, *runs),
+               lambda: ak.te_gather_accumulate_plain(curve, p.table, *one),
+               lambda o: o[:1], 3, n_rows * MULMODS["madd"],
+               n_rows * (3 * 4 * nw + 8 + 4) + n_win * nbe * (16 + pt_bytes),
+               windows=n_win, lanes=n_win * nbe, rows=n_rows,
+               plain_shape="window 0 alone")
+    one_bound, _ = bound_ms(one_rows * MULMODS["madd"],
+                            one_rows * (3 * 4 * nw + 8 + 4)
+                            + nbe * (16 + pt_bytes))
+    rows[-1]["one_window"] = {"ms": one_ms, "bound_ms": one_bound,
+                              "rows": one_rows}
+    log(f"te_gather_accumulate, window 0 alone ({one_rows} rows): "
+        f"{one_ms:.4f} ms (bound {one_bound:.4f} ms)")
+    del runs, one
+
+    c_lanes, steps = te_path.triangle_split(n_win, nbe)
+    lanes = n_win * c_lanes
+    chunks = sums.reshape(lanes, steps, 4, nw).contiguous()
+    row("te_running_sum", "zprize_tpu/msm/accum_kernel.py:791",
+        lambda: ak.te_running_sum(curve, chunks),
+        lambda: ak.te_running_sum_plain(curve, chunks), lambda o: o, 10,
+        lanes * 2 * (steps - 1) * MULMODS["add"],
+        lanes * (steps + 2) * pt_bytes, lanes=lanes, steps=steps,
+        loop_of="zprize_tpu/msm/accum_kernel.py:1444")
+
+    n_bits = (c_lanes - 1).bit_length()
+    lanes = c_lanes // 2 * n_win * n_bits
+    flat = sums.reshape(-1, 4, nw)
+    idx = torch.arange(2 * lanes, device=dev) % flat.shape[0]
+    a, b = flat[idx[:lanes]], flat[idx[lanes:]]
+    skip = torch.zeros(lanes, dtype=torch.int32, device=dev)
+    row("te_full_add", "zprize_tpu/msm/accum_kernel.py:791",
+        lambda: ak.te_full_add(curve, a, b, skip),
+        lambda: ak.te_full_add_plain(curve, a, b, skip), lambda o: o, 10,
+        lanes * MULMODS["add"], lanes * (3 * pt_bytes + 4), lanes=lanes)
+    return rows
 
 
 def sw_rows(curve, ctx, aff, batch, launches, dev):
@@ -1558,7 +1638,7 @@ def main():
     torch.cuda.empty_cache()
     ctx, batch, launches, prize = prize_path(curve, dev)
     prize["profile"] = profile_msm(ctx, batch)
-    kernels.insert(2, gather_row(curve, ctx, batch, launches, dev))
+    kernels.extend(prize_rows(curve, ctx, batch, launches, dev))
     del ctx, batch
     torch.cuda.empty_cache()
     pk, wires, public, plonk_launches, plonk = plonk_path(dev)

@@ -167,6 +167,98 @@ def test_triangle_merge_matches_reference(te_affine):
     assert te.te_to_sw_host(CURVE, x, y, z) == (*expect, 1)
 
 
+def test_running_sum_matches_full_add_loop_and_ints(te_affine):
+    """te_running_sum_plain at the new split of W = 2 windows x 1024
+    buckets (C = 128 chunks of S = 8): word for word the step-by-step
+    te_full_add_plain walk (T = B_7, U = T; then T += B_j, U += T), and
+    in value the python ints T = sum_j B_j, U = sum_j (j+1) B_j."""
+    c_lanes, s = te_path.triangle_split(2, 1024)
+    assert (c_lanes, s) == (128, 8)
+    lanes = 2 * c_lanes
+    idx = [(7 * l + 3 * j) % N_BASE for l in range(lanes) for j in range(s)]
+    pts, _ = _both(_extended_ints(te_affine, idx, 8), (lanes, s))
+    t, u = ak.te_running_sum(CURVE, pts)
+    skip = torch.zeros(lanes, dtype=torch.int32)
+    t_ref = pts[:, s - 1]
+    u_ref = t_ref
+    for j in range(s - 2, -1, -1):
+        t_ref = ak.te_full_add_plain(CURVE, t_ref, pts[:, j].contiguous(),
+                                     skip)
+        u_ref = ak.te_full_add_plain(CURVE, u_ref, t_ref, skip)
+    assert torch.equal(t, t_ref) and torch.equal(u, u_ref)
+    g = oracle.generator(CURVE)
+    for lane in (0, 1, lanes - 1):
+        ks = [idx[lane * s + j] + 1 for j in range(s)]
+        for got, k in ((t, sum(ks)), (u, sum((j + 1) * kj
+                                             for j, kj in enumerate(ks)))):
+            x, y, z = (int(v) for v in fp.to_ints(CURVE.field, got[lane, :3]))
+            assert te.te_to_sw_host(CURVE, x, y, z) == (
+                *oracle.ec_mul(g, k, P), 1)
+
+
+def test_triangle_merge_several_windows_matches_ints(te_affine):
+    """merge_buckets_te_triangle over 3 windows of 2048 buckets (new split:
+    C = 256, S = 8; one te_running_sum walk, the trees and the combines)
+    against the python-int value of each window."""
+    n_win, nbe = 3, 2048
+    assert te_path.triangle_split(n_win, nbe) == (256, 8)
+    idx = [[(b * (w + 2) + w) % N_BASE for b in range(nbe)]
+           for w in range(n_win)]
+    ours, _ = _both(_extended_ints(te_affine, sum(idx, []), 9),
+                    (n_win, nbe))
+    got = te_path.merge_buckets_te_triangle(CURVE, 12, ours)
+    g = oracle.generator(CURVE)
+    for w in range(n_win):
+        x, y, z = (int(v) for v in fp.to_ints(CURVE.field, got[w, :3]))
+        k = sum((b + 1) * (i + 1) for b, i in enumerate(idx[w]))
+        assert te.te_to_sw_host(CURVE, x, y, z) == (
+            *oracle.ec_mul(g, k % CURVE.order, P), 1)
+
+
+@pytest.mark.parametrize("n_win, n_buckets, split", [
+    (15, 1 << 16, (2048, 32)),     # the 2^26 m = 1 route's full windows
+    (1, 1 << 16, (8192, 8)),       # the 2^18 collapsed route (g = 1)
+    (16, 1 << 16, (2048, 32)),
+    (2, 1024, (128, 8)),
+    (600, 1 << 12, (128, 32)),     # many windows: no fewer than 128 chunks
+    (1, 512, None),                # below 1024 buckets: no triangle
+    (4, 1000, None),
+])
+def test_triangle_split_fills_the_card(n_win, n_buckets, split):
+    """C a power of two, the largest with W * C <= 2^15 lanes and S >= 8
+    (at least 128 chunks); None below 1024 buckets."""
+    got = te_path.triangle_split(n_win, n_buckets)
+    assert got == split
+    if got is not None:
+        c_lanes, s = got
+        assert c_lanes & (c_lanes - 1) == 0 and c_lanes * s == n_buckets
+        assert s >= 8 and (n_win * c_lanes <= 1 << 15 or c_lanes == 128)
+
+
+def test_running_sum_checks_its_input_and_runs_plain_on_cpu(te_affine):
+    coords = _extended_ints(te_affine, list(range(12)), 10)
+    pts, _ = _both(coords, (3, 4))
+    ak.reset_launches()
+    t, u = ak.te_running_sum(CURVE, pts)
+    t_ref, u_ref = ak.te_running_sum_plain(CURVE, pts)
+    assert torch.equal(t, t_ref) and torch.equal(u, u_ref)
+    assert t.shape == (3, 4, fp.n_words(CURVE.field))
+    assert set(ak.launches.values()) == {0}             # no kernel on CPU
+    # S = 1: T = U = the lane's one point
+    t1, u1 = ak.te_running_sum(CURVE, pts[:, :1].contiguous())
+    assert torch.equal(t1, pts[:, 0]) and torch.equal(u1, pts[:, 0])
+    with pytest.raises(TypeError):
+        ak.te_running_sum(CURVE, pts.to(torch.int64))
+    with pytest.raises(ValueError):                     # (L, 4, nw): no S
+        ak.te_running_sum(CURVE, pts[:, 0].contiguous())
+    with pytest.raises(ValueError):
+        ak.te_running_sum(CURVE, pts[:, :0].contiguous())
+    with pytest.raises(ValueError):
+        ak.te_running_sum(CURVE, pts.transpose(0, 1))
+    with pytest.raises(ValueError):
+        ak.te_running_sum(CURVE, pts.to("meta"))
+
+
 def test_bit_decomposed_merge_matches_reference(te_affine):
     """merge_buckets_te (two windows of 16 buckets)."""
     coords = _extended_ints(te_affine, list(range(32)), 5)

@@ -1,6 +1,6 @@
 // Twisted-Edwards (a = -1, extended coordinates) MSM kernels for Hopper.
 //
-// Five kernels, each with a plain C launcher that ctypes binds
+// Six kernels, each with a plain C launcher that ctypes binds
 // (zprize_tpu_torch/msm/accum_kernel.py holds the wrappers and the plain
 // PyTorch version of each).  A launcher takes device pointers, sizes and
 // the stream, allocates nothing, launches on that stream without
@@ -15,16 +15,21 @@
 // (add_mixed, add, dbl): keep them in lockstep, since kernel and plain
 // version must agree bit for bit.
 //
-// What bounds all five on an H100: 32-bit integer multiplies.  One field
-// multiplication (mulmod) is 588 IMAD issue slots (csrc/fq.cuh); the
-// kernels read and write a few hundred bytes per thousands of multiplies,
-// so memory is far from the limit.  A mixed add costs 7
-// mulmods, a full add 9 and a doubling 8.  The design answer is one thread
-// per independent chain with the whole point state in registers, so every
-// multiply feeds the next without a trip through memory, and 128-thread
-// blocks, because a point with its temporaries needs 124-162 registers a
-// thread (ptxas -v).  Speed (carry chains, shared-memory staging, load
-// balance across buckets) is later work.
+// What bounds all six on an H100: 32-bit integer multiplies.  One field
+// multiplication (mulmod) is 588 IMADs on the carry chains of csrc/fq.cuh;
+// the kernels read and write a few hundred bytes per thousands of
+// multiplies, so memory is far from the limit.  A mixed add costs 7
+// mulmods, a full add 9 and a doubling 8.  The design answer is one
+// thread per independent chain with the whole point state in registers,
+// so every multiply feeds the next without a trip through memory, and
+// 128-thread blocks.  The two kernels of the 2^26 MSM's path carry more:
+// k_gather_accumulate keeps the next operand row in flight (cp.async into
+// a two-stage ring in shared memory) and reads its operands from there;
+// k_running_sum walks a chunk of buckets with both running sums in
+// registers, so the triangle merge is one launch.  The multiplies run at
+// 80 % (gather) and 65 % (running sum) of that bound on the 2^26 MSM's
+// path (PERF.md).  Load balance across buckets (skewed scalars) is
+// later work.
 
 #include <cuda_runtime.h>
 
@@ -42,6 +47,15 @@ namespace {
 constexpr int BLOCK = 128;
 constexpr int PT_WORDS = 4 * NW;
 constexpr int PRE_WORDS = 3 * NW;
+constexpr int ROW_CHUNKS = PRE_WORDS / 4;  // 16-byte words of an operand row
+constexpr int STAGE = ROW_CHUNKS * BLOCK;  // one stage of the gather's ring
+
+// Blocks of 128 threads a SM that ptxas must fit in the SM's 65,536
+// registers: 3 leaves 168 registers a thread, 2 leaves 255.  One more
+// block makes ptxas spill (4 for the gather: 128 registers and a 40-byte
+// stack frame; 3 for the running sum: 168 and 160 bytes).
+constexpr int GATHER_MIN_BLOCKS = 3;
+constexpr int RUNNING_SUM_MIN_BLOCKS = 2;
 
 struct Pt {
   Fq x, y, z, t;
@@ -59,6 +73,11 @@ __device__ __forceinline__ void store_pt(uint32_t* dst, const Pt& a) {
   fq::store(dst + 3 * NW, a.t);
 }
 
+__device__ __forceinline__ Pt identity(const Params& P) {
+  return {fq::zero<NW>(), fq::load<NW>(P.one), fq::load<NW>(P.one),
+          fq::zero<NW>()};
+}
+
 // Shared tail of the hwcd-3 adds: E=B-A, F=D-C, G=D+C, H=B+A.
 __device__ __forceinline__ Pt finish(const Fq& a, const Fq& b, const Fq& c,
                                      const Fq& d, const Params& P) {
@@ -71,28 +90,37 @@ __device__ __forceinline__ Pt finish(const Fq& a, const Fq& b, const Fq& c,
 }
 
 // madd-2008-hwcd-3 (7M); `neg` adds -Q: Y+X and Y-X swap and C changes
-// sign.
-__device__ __forceinline__ Pt madd(const Pt& p, const uint32_t* row, bool neg,
+// sign.  row(w) gives the operand's word w (0: Y+X, 1: Y-X, 2: 2dXY),
+// read where it is multiplied, so no operand is held across the add.
+template <class Row>
+__device__ __forceinline__ Pt madd(const Pt& p, const Row& row, bool neg,
                                    const Params& P) {
-  Fq yp = fq::load<NW>(row), ym = fq::load<NW>(row + NW);
-  Fq kt = fq::load<NW>(row + 2 * NW);
-  Fq a = fq::mul(fq::sub(p.y, p.x, P), neg ? yp : ym, P);
-  Fq b = fq::mul(fq::add(p.y, p.x, P), neg ? ym : yp, P);
-  Fq c = fq::mul(p.t, kt, P);
-  if (neg) c = fq::neg(c, P);
+  Fq a = fq::mul(fq::sub(p.y, p.x, P), row(neg ? 0 : 1), P);
+  Fq b = fq::mul(fq::add(p.y, p.x, P), row(neg ? 1 : 0), P);
+  Fq c = fq::mul(p.t, row(2), P);
+  c = fq::select(neg, fq::neg(c, P), c);
   Fq d = fq::add(p.z, p.z, P);
   return finish(a, b, c, d, P);
 }
 
-// add-2008-hwcd-3 with k = 2d (9M).
-__device__ __forceinline__ Pt full_add(const Pt& p, const Pt& q,
+// add-2008-hwcd-3 with k = 2d (9M); q(j) gives coordinate j of the
+// second point (0: X, 1: Y, 2: Z, 3: T).
+template <class Q>
+__device__ __forceinline__ Pt full_add(const Pt& p, const Q& q,
                                        const Params& P) {
-  Fq a = fq::mul(fq::sub(p.y, p.x, P), fq::sub(q.y, q.x, P), P);
-  Fq b = fq::mul(fq::add(p.y, p.x, P), fq::add(q.y, q.x, P), P);
-  Fq c = fq::mul(fq::mul(p.t, q.t, P), fq::load<NW>(P.k), P);
-  Fq zz = fq::mul(p.z, q.z, P);
+  Fq a = fq::mul(fq::sub(p.y, p.x, P), fq::sub(q(1), q(0), P), P);
+  Fq b = fq::mul(fq::add(p.y, p.x, P), fq::add(q(1), q(0), P), P);
+  Fq c = fq::mul(fq::mul(p.t, q(3), P), fq::load<NW>(P.k), P);
+  Fq zz = fq::mul(p.z, q(2), P);
   Fq d = fq::add(zz, zz, P);
   return finish(a, b, c, d, P);
+}
+
+__device__ __forceinline__ Pt full_add(const Pt& p, const Pt& q,
+                                       const Params& P) {
+  return full_add(p, [&](int j) {
+    return j == 0 ? q.x : j == 1 ? q.y : j == 2 ? q.z : q.t;
+  }, P);
 }
 
 // dbl-2008-hwcd with a = -1 (4M + 4S).
@@ -144,45 +172,85 @@ __global__ void __launch_bounds__(BLOCK)
   fq::load_params(P, params);
   long long b = (long long)blockIdx.x * BLOCK + threadIdx.x;
   if (b >= nbe) return;
-  Pt acc = {fq::zero<NW>(), fq::load<NW>(P.one), fq::load<NW>(P.one),
-            fq::zero<NW>()};
+  Pt acc = identity(P);
   long long r0 = starts[b], r1 = starts[b] + counts[b];
 #pragma unroll 1
-  for (long long r = r0; r < r1; ++r)
-    acc = madd(acc, rows + r * PRE_WORDS, sign[r] != 0, P);
+  for (long long r = r0; r < r1; ++r) {
+    const uint32_t* row = rows + r * PRE_WORDS;
+    acc = madd(acc, [&](int w) { return fq::load<NW>(row + w * NW); },
+               sign[r] != 0, P);
+  }
   store_pt(out + b * PT_WORDS, acc);
 }
 
-// Load one 144-byte operand row as nine 16-byte reads (rows start at
-// multiples of 144 bytes from a 16-byte aligned table).
-__device__ __forceinline__ void load_row(uint32_t (&w)[PRE_WORDS],
-                                         const uint32_t* __restrict__ row) {
+// Copy one 144-byte operand row (nine 16-byte words, 16-byte aligned) into
+// a thread's ring slot: chunk k goes to slot[k * BLOCK], so the lanes of a
+// warp read a chunk back as one conflict-free 128-bit access.  cp.async.cg
+// goes through L2 only: the rows are gathered at random and read once.
+__device__ __forceinline__ void copy_row(uint4* slot, const uint32_t* row) {
   const uint4* src = reinterpret_cast<const uint4*>(row);
 #pragma unroll
-  for (int k = 0; k < PRE_WORDS / 4; ++k) {
-    uint4 v = __ldg(src + k);
-    w[4 * k] = v.x;
-    w[4 * k + 1] = v.y;
-    w[4 * k + 2] = v.z;
-    w[4 * k + 3] = v.w;
+  for (int k = 0; k < ROW_CHUNKS; ++k) {
+    const uint32_t dst = (uint32_t)__cvta_generic_to_shared(slot + k * BLOCK);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst),
+                 "l"(src + k)
+                 : "memory");
   }
+}
+
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// wait until at most `pending` of this thread's copy groups are in flight
+template <int pending>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(pending) : "memory");
+}
+
+// operand word w (three chunks) of the row in a ring slot
+__device__ __forceinline__ Fq slot_word(const uint4* slot, int w) {
+  Fq r;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const uint4 v = slot[(3 * w + k) * BLOCK];
+    r.v[4 * k] = v.x;
+    r.v[4 * k + 1] = v.y;
+    r.v[4 * k + 2] = v.z;
+    r.v[4 * k + 3] = v.w;
+  }
+  return r;
 }
 
 // te_gather_accumulate: replaces make_te_mixed_add (and the rank loop of
 // accumulate_te_pallas, zprize_tpu/msm/accum_kernel.py), the m = 1
 // route's accumulate.  Lane i = w * nbe + b of W windows sums bucket b of
 // window w: the rows table[perm[w, r]] for r in starts[i] .. starts[i] +
-// counts[i], each negated where sign[w, r] != 0.  Bound: 7 mulmods per
-// row; bytes are a 144-byte row, an 8-byte index and a 4-byte sign per
-// row, far below the multiplies.  Design: as k_bucket_accumulate, one
-// thread per bucket lane walks its whole run from the identity with the
-// point in registers, but reads each row through the index straight from
-// the point table, so no sorted copy of the table is written and read
-// again.  The thread's walk takes the place of the TPU's tier loop and the
-// sort by |digit| that of its tier schedule.  A bucket holding most rows
-// (skewed scalars) makes one thread walk them all: right, but serial.
-// Offsets are 64-bit: a 2^26-point table holds 2.4e9 words.
-__global__ void __launch_bounds__(BLOCK)
+// counts[i], each negated where sign[w, r] != 0.  Bound: 7 mulmods (4116
+// IMADs) per row; bytes are a 144-byte row, an 8-byte index and a 4-byte
+// sign per row, far below the multiplies.  Design: one thread per bucket
+// lane walks its whole run from the identity with the point in
+// registers, and reads each row through the index straight from the
+// point table (no sorted copy of the table is written and read again).
+// The random 144-byte row reads are taken off the critical path: while a
+// thread adds row k, row k + 1 is on its way into the thread's slot of a
+// two-stage ring in shared memory (cp.async, 2 x 128 x 144 = 36,864 bytes
+// a block), and the index of row k + 2 is on its way into a register.  A
+// thread reads only its own slot, so no barrier is needed: the wait for
+// its own copies (cp.async.wait_group) orders them, and a slot is
+// refilled only after the add that read it.  The madd takes its operand
+// words from the slot where it multiplies them, so the row takes no
+// registers, and a negative sign picks the operand by index, so nothing
+// goes to local memory.  ptxas: 168 registers, no stack frame, no
+// spills at 3 blocks of 128 a SM (12 warps).  Measured on an H100
+// (PERF.md): 309.5 ms for the 2^26 MSM's launch over 15 windows (983,040
+// lanes, 1.007e9 rows) against a 247.4 ms bound, 80 % of it (without the
+// ring and on the 64-bit field engine: 630 ms, 39 %).  The thread's walk takes the place of the TPU's
+// tier loop and the sort by |digit| that of its tier schedule.  A bucket
+// holding most rows (skewed scalars) makes one thread walk them all:
+// right, but serial.  Offsets are 64-bit: a 2^26-point table holds 2.4e9
+// words.
+__global__ void __launch_bounds__(BLOCK, GATHER_MIN_BLOCKS)
     k_gather_accumulate(const uint32_t* params,
                         const uint32_t* __restrict__ table,
                         const long long* __restrict__ perm,
@@ -191,25 +259,41 @@ __global__ void __launch_bounds__(BLOCK)
                         const long long* __restrict__ counts, uint32_t* out,
                         long long n, long long nbe, long long lanes) {
   __shared__ Params P;
+  __shared__ uint4 ring[2 * STAGE];
   fq::load_params(P, params);
   long long i = (long long)blockIdx.x * BLOCK + threadIdx.x;
   if (i >= lanes) return;
-  long long base = (i / nbe) * n;
-  Pt acc = {fq::zero<NW>(), fq::load<NW>(P.one), fq::load<NW>(P.one),
-            fq::zero<NW>()};
-  long long r0 = base + starts[i], r1 = r0 + counts[i];
-  uint32_t row[PRE_WORDS];
+  const long long r0 = (i / nbe) * n + starts[i];
+  const long long count = counts[i];
+  const long long* idx = perm + r0;
+  const int32_t* sg = sign + r0;
+  uint4* const slot0 = ring + threadIdx.x;  // stage s at slot0 + s * STAGE
+  // rows 0 and 1 in flight, one copy group each
+  if (count > 0) copy_row(slot0, table + idx[0] * PRE_WORDS);
+  copy_commit();
+  if (count > 1) copy_row(slot0 + STAGE, table + idx[1] * PRE_WORDS);
+  copy_commit();
+  long long next = count > 2 ? idx[2] : 0;
+  bool neg = count > 0 && sg[0] != 0;
+  Pt acc = identity(P);
 #pragma unroll 1
-  for (long long r = r0; r < r1; ++r) {
-    load_row(row, table + perm[r] * PRE_WORDS);
-    acc = madd(acc, row, sign[r] != 0, P);
+  for (long long k = 0; k < count; ++k) {
+    const long long ahead = k + 3 < count ? idx[k + 3] : 0;
+    const bool neg_next = k + 1 < count && sg[k + 1] != 0;
+    uint4* const slot = slot0 + (k & 1) * STAGE;
+    copy_wait<1>();  // every group but the newest has landed: row k has
+    acc = madd(acc, [&](int w) { return slot_word(slot, w); }, neg, P);
+    if (k + 2 < count) copy_row(slot, table + next * PRE_WORDS);
+    copy_commit();
+    next = ahead;
+    neg = neg_next;
   }
   store_pt(out + i * PT_WORDS, acc);
 }
 
 // te_full_add: replaces make_te_full_add (zprize_tpu/msm/accum_kernel.py),
-// the adder of the triangle and bit-decomposed bucket merges.  Bound: 9
-// mulmods per lane.  Design: one thread per lane; skip lanes pass p
+// the adder of the bucket-sum trees and the bit-decomposed merge.  Bound:
+// 9 mulmods per lane.  Design: one thread per lane; skip lanes pass p
 // through.
 __global__ void __launch_bounds__(BLOCK)
     k_full_add(const uint32_t* params, const uint32_t* p, const uint32_t* q,
@@ -221,6 +305,42 @@ __global__ void __launch_bounds__(BLOCK)
   Pt a = load_pt(p + i * PT_WORDS);
   if (skip[i] == 0) a = full_add(a, load_pt(q + i * PT_WORDS), P);
   store_pt(out + i * PT_WORDS, a);
+}
+
+// te_running_sum: replaces the 2S launches of make_te_full_add through
+// which the triangle merge (merge_te_triangle_pallas,
+// zprize_tpu/msm/accum_kernel.py) walks its chunks.  Lane l of L sums its
+// chunk of S bucket sums B_0..B_{S-1} (pts (L, S, 4, 12)) from the top:
+//   T = B_{S-1}, U = T;  for j = S-2 .. 0:  T += B_j, U += T
+// so T = sum_j B_j and U = sum_j (j+1) B_j.  Bound: 2 (S - 1) full adds,
+// 18 (S - 1) mulmods a lane; the bytes (each bucket sum read once, two
+// points written a lane) are far below.  Design: one thread per lane,
+// both sums in registers, each B_j's coordinates read where they are
+// multiplied; one launch takes the place of 2S launches of a few thousand
+// lanes each.  triangle_split (msm/te_path.py) picks L, about one wave of
+// the card.  ptxas: 228 registers, no stack frame, no spills at 2 blocks
+// of 128 a SM.  Measured on an H100 (PERF.md): 0.928 ms at the 2^26
+// merge's 30,720 lanes x 32 steps against a 0.602 ms bound (65 %); the
+// whole merge 2.1 ms where the 2S launches took 21.5.
+__global__ void __launch_bounds__(BLOCK, RUNNING_SUM_MIN_BLOCKS)
+    k_running_sum(const uint32_t* params, const uint32_t* __restrict__ pts,
+                  uint32_t* t_out, uint32_t* u_out, long long lanes,
+                  int steps) {
+  __shared__ Params P;
+  fq::load_params(P, params);
+  long long i = (long long)blockIdx.x * BLOCK + threadIdx.x;
+  if (i >= lanes) return;
+  const uint32_t* src = pts + i * steps * PT_WORDS;
+  Pt t = load_pt(src + (long long)(steps - 1) * PT_WORDS);
+  Pt u = t;
+#pragma unroll 1
+  for (int j = steps - 2; j >= 0; --j) {
+    const uint32_t* b = src + (long long)j * PT_WORDS;
+    t = full_add(t, [&](int c) { return fq::load<NW>(b + c * NW); }, P);
+    u = full_add(u, t, P);
+  }
+  store_pt(t_out + i * PT_WORDS, t);
+  store_pt(u_out + i * PT_WORDS, u);
 }
 
 // te_combine: replaces make_te_combine (zprize_tpu/msm/accum_kernel.py),
@@ -290,6 +410,15 @@ int te_full_add(const void* params, const void* p, const void* q,
   k_full_add<<<grid_for(n), BLOCK, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)params, (const uint32_t*)p, (const uint32_t*)q,
       (const int32_t*)skip, (uint32_t*)out, n);
+  return (int)cudaGetLastError();
+}
+
+int te_running_sum(const void* params, const void* pts, void* t_out,
+                   void* u_out, long long lanes, int steps, void* stream) {
+  if (lanes <= 0) return 0;
+  k_running_sum<<<grid_for(lanes), BLOCK, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)params, (const uint32_t*)pts, (uint32_t*)t_out,
+      (uint32_t*)u_out, lanes, steps);
   return (int)cudaGetLastError();
 }
 

@@ -1,4 +1,4 @@
-"""The seven MSM kernels, five twisted-Edwards and two short-Weierstrass:
+"""The eight MSM kernels, six twisted-Edwards and two short-Weierstrass:
 wrappers, launch counts and plain versions.
 
 Each wrapper takes int32 Montgomery-word tensors (layouts in
@@ -22,6 +22,7 @@ hold each kernel against them bit for bit.
 | te_bucket_accumulate  | make_te_mixed_add_slab (+ the loop of accumulate_te_sorted) |
 | te_gather_accumulate  | make_te_mixed_add (+ the rank loop of accumulate_te_pallas) |
 | te_full_add           | make_te_full_add                                         |
+| te_running_sum        | the 2S make_te_full_add launches of merge_te_triangle_pallas |
 | te_combine            | make_te_combine                                          |
 | sw_gather_accumulate  | make_mixed_add, make_mixed_add_multi, make_mixed_add_rect (+ their rank loops) |
 | sw_full_add           | make_full_add                                            |
@@ -39,7 +40,8 @@ from ..curve.spec import CurveSpec
 from ..field import fp
 
 TE_KERNELS = ("te_dbl_chain", "te_bucket_accumulate",
-              "te_gather_accumulate", "te_full_add", "te_combine")
+              "te_gather_accumulate", "te_full_add", "te_running_sum",
+              "te_combine")
 SW_KERNELS = ("sw_gather_accumulate", "sw_full_add")
 KERNELS = TE_KERNELS + SW_KERNELS
 
@@ -63,6 +65,7 @@ def _lib() -> ctypes.CDLL:
     lib.te_gather_accumulate.argtypes = [vp, vp, vp, vp, vp, vp, vp, ll, ll,
                                          ll, vp]
     lib.te_full_add.argtypes = [vp, vp, vp, vp, vp, ll, vp]
+    lib.te_running_sum.argtypes = [vp, vp, vp, vp, ll, ci, vp]
     lib.te_combine.argtypes = [vp, vp, vp, ci, ll, ci, vp]
     for name in TE_KERNELS:
         getattr(lib, name).restype = ci
@@ -264,6 +267,8 @@ def te_gather_accumulate(curve: CurveSpec, table: torch.Tensor,
     if not _on_card(table, perm, sign, starts, counts):
         return te_gather_accumulate_plain(curve, table, perm, sign, starts,
                                           counts)
+    if table.data_ptr() % 16:
+        raise ValueError("table: the kernel copies 16-byte aligned rows")
     out = torch.empty((n_win, nbe, *_pt_tail(curve)), dtype=torch.int32,
                       device=table.device)
     rc = _lib().te_gather_accumulate(
@@ -320,6 +325,43 @@ def te_full_add_plain(curve: CurveSpec, p: torch.Tensor, q: torch.Tensor,
                       skip: torch.Tensor) -> torch.Tensor:
     s = te.pack(te.add(curve, te.unpack(p), te.unpack(q)))
     return torch.where((skip != 0)[..., None, None], p, s)
+
+
+# ---------------------------------------------------------------------------
+# te_running_sum
+# ---------------------------------------------------------------------------
+
+
+def te_running_sum(curve: CurveSpec, pts: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Both running sums of each lane's chunk: pts (L, S, 4, nw) holds
+    lane l's S points B_0..B_{S-1}; returns (T, U), each (L, 4, nw), with
+    T = sum_j B_j and U = sum_j (j+1) B_j, walked from the top
+    (T = B_{S-1}, U = T; then T += B_j, U += T for j = S-2 .. 0)."""
+    _check("pts", pts, _pt_tail(curve))
+    if pts.dim() != 4 or pts.shape[1] < 1:
+        raise ValueError("pts: expected (L, S >= 1, 4, nw), got "
+                         f"{tuple(pts.shape)}")
+    if not _on_card(pts):
+        return te_running_sum_plain(curve, pts)
+    lanes, steps = pts.shape[:2]
+    t_out = torch.empty_like(pts[:, 0])
+    u_out = torch.empty_like(t_out)
+    rc = _lib().te_running_sum(device_params(curve, pts.device).data_ptr(),
+                               pts.data_ptr(), t_out.data_ptr(),
+                               u_out.data_ptr(), lanes, steps, _stream(pts))
+    _launch("te_running_sum", rc)
+    return t_out, u_out
+
+
+def te_running_sum_plain(curve: CurveSpec, pts: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    t = te.unpack(pts[:, -1])
+    u = t
+    for j in range(pts.shape[1] - 2, -1, -1):
+        t = te.add(curve, t, te.unpack(pts[:, j]))
+        u = te.add(curve, u, t)
+    return te.pack(t), te.pack(u)
 
 
 # ---------------------------------------------------------------------------

@@ -19,7 +19,8 @@ import torch
 from ..curve import te
 from ..curve.spec import CurveSpec
 from ..field import fp
-from .accum_kernel import te_combine, te_dbl_chain, te_full_add
+from .accum_kernel import (te_combine, te_dbl_chain, te_full_add,
+                           te_running_sum)
 
 
 # points per block of the m = 1 table build: the plain engine's
@@ -80,25 +81,25 @@ def prepare_points_collapsed(curve: CurveSpec, x, y, inf, shift: int,
     return table.reshape(-1, 3, fp.n_words(f))
 
 
-# total chunk lanes of the triangle merge (W * C), the reference's default
-_TRI_LANES = 4096
+# chunk lanes (W * C) the triangle merge aims for: about one wave of
+# te_running_sum on an H100 (132 SMs x 2 blocks of 128 threads), so the
+# chunks' serial walks run side by side and the tails stay small
+_TRI_LANES = 1 << 15
 
 
 def triangle_split(n_win: int, n_buckets: int) -> tuple[int, int] | None:
-    """The (chunks C, chunk size S) split of the triangle merge: C lanes
-    wide (pow2, >= 128), S = B/C sequential steps.  None if the bucket
-    range is too small to be worth it.  Same choice as the reference
-    package, so both run the same merge for the same plan."""
+    """The (chunks C, chunk size S) split of the triangle merge: C a power
+    of two, the largest with W * C <= _TRI_LANES and S = B/C >= 8 steps
+    (at least 128 chunks).  None below 1024 buckets, where the
+    bit-decomposed merge is cheaper; the reference package draws the same
+    line, so both packages plan the same collapse (`plan_collapse`)."""
     if n_buckets < 1024:
         return None
     c_lanes = 128
     while (c_lanes * 2 <= n_buckets // 8
            and n_win * c_lanes * 2 <= _TRI_LANES):
         c_lanes *= 2
-    s = n_buckets // c_lanes
-    if s < 8:
-        return None
-    return c_lanes, s
+    return c_lanes, n_buckets // c_lanes
 
 
 def _identity(curve: CurveSpec, device) -> torch.Tensor:
@@ -154,32 +155,24 @@ def merge_buckets_te_triangle(curve: CurveSpec, c: int,
     """sum_b b*B_b per window by the chunked running sum:
 
       b = q*S + (j+1):  sum_b b*B_b = sum_q U_q + S * sum_q q*T_q
-      U_q = sum_j (j+1) B_{qS+j+1}  (running suffix, 2 full adds a step,
-                                     S steps over all W*C chunk lanes)
-      T_q = sum_j B_{qS+j+1}
+      U_q = sum_j (j+1) B_{qS+j+1},  T_q = sum_j B_{qS+j+1}
 
-    bucket_sums (W, nbe, 4, nw) -> (W, 4, nw)."""
+    (both from one te_running_sum launch over all W*C chunk lanes, S
+    steps each).  bucket_sums (W, nbe, 4, nw) -> (W, 4, nw)."""
     n_win, nbe = bucket_sums.shape[:2]
     split = triangle_split(n_win, nbe)
     if split is None:
         raise ValueError(f"no triangle split for {n_win} x {nbe} buckets")
     c_lanes, s = split
-    lanes = n_win * c_lanes
-    dev = bucket_sums.device
-    planes = bucket_sums.reshape(lanes, s, *bucket_sums.shape[-2:])
-    skip = torch.zeros(lanes, dtype=torch.int32, device=dev)
-    acc_s = _identity(curve, dev).expand(lanes, -1, -1).contiguous()
-    acc_u = acc_s
-    for j in range(s - 1, -1, -1):
-        acc_s = te_full_add(curve, acc_s, planes[:, j].contiguous(), skip)
-        acc_u = te_full_add(curve, acc_u, acc_s, skip)
-    t_q = acc_s.reshape(n_win, c_lanes, *acc_s.shape[-2:])
-    u_tot = sum_axis(curve, acc_u.reshape(t_q.shape), 1)        # (W, 4, nw)
+    chunks = bucket_sums.reshape(n_win * c_lanes, s,
+                                 *bucket_sums.shape[-2:]).contiguous()
+    t_q, u_q = te_running_sum(curve, chunks)
+    t_q = t_q.reshape(n_win, c_lanes, *t_q.shape[-2:])
+    u_tot = sum_axis(curve, u_q.reshape(t_q.shape), 1)          # (W, 4, nw)
     # V = sum_q q*T_q (chunk 0 has weight 0), folded MSB-first
     v = te_combine(curve, _bit_sums(curve, t_q, 0), 1)          # (W, 4, nw)
     # U_tot + 2^log2(S) * V: a combine with c = log2(S) over [U_tot; V]
-    return te_combine(curve, torch.stack([u_tot, v]),
-                      max(1, s.bit_length() - 1))
+    return te_combine(curve, torch.stack([u_tot, v]), s.bit_length() - 1)
 
 
 def combine_windows_te(curve: CurveSpec, c: int, window_sums: torch.Tensor
