@@ -24,14 +24,18 @@ In order, each phase raising on failure (so the exit code is non-zero):
    holding 0, 1, q-1 and 2^32-1; a column pass with the two-level step
    twiddle; intt(ntt(x)) == x; and the plain version against a python-int
    DFT at 2^3 and 2^9;
-3d. holds the two short-Weierstrass kernels against their plain versions,
-   bit for bit, with BLS12-381's and BLS12-377's constants, at 4096 and
-   1000 lanes: sw_gather_accumulate over two windows (empty runs, runs of
-   one, negative signs, a point added twice (P + P), a point and its
-   negative (P + (-P)), curve points beside random words, rows at 0, 1
-   and p-1), and sw_full_add in place (identity accumulators and
+3d. holds the four short-Weierstrass kernels against their plain
+   versions, bit for bit, with BLS12-381's and BLS12-377's constants, at
+   4096 and 1000 lanes: sw_gather_accumulate over two windows (empty
+   runs, runs of one, negative signs, a point added twice (P + P), a
+   point and its negative (P + (-P)), curve points beside random words,
+   rows at 0, 1 and p-1); sw_full_add in place (identity accumulators and
    operands, doubling, P + (-P), skip lanes, edge lanes, and the
-   accumulator added to itself);
+   accumulator added to itself); sw_combine over 4 windows at c = 3
+   (identity lanes, a window sum equal to the accumulator and one equal
+   to its negative, edge words 0, 1 and p-1); sw_running_sum over chunks
+   of S = 8 and 16 (an identity lane, a lane of one point repeated, a
+   lane of P, -P, .., a lane of edge values);
 4. drives the MSM main path through the user entry points at the
    benchmark's default size: n = 2^18 BLS12-377 G1 points, 1024 distinct
    base points (i+1)·G tiled, `multi_scalar_mult_init`, then a warm-up and
@@ -91,14 +95,15 @@ In order, each phase raising on failure (so the exit code is non-zero):
    G1 at n = 2^18 through `multi_scalar_mult_init` (c = 13: 21 windows,
    2^12 buckets in each full window), a warm-up and 4 timed batches, every
    result checked against the python-int oracle, each MSM launching
-   sw_gather_accumulate and sw_full_add and no TE or NTT kernel;
+   sw_gather_accumulate, sw_full_add, sw_running_sum and sw_combine and
+   no TE or NTT kernel (the sw_full_add launches per MSM are printed);
    BLS12-377 at 2^18 with te=False against the oracle and against the TE
    route's result for the same batch; a skewed 2^12 run (all scalars
    equal; half zero, half equal); `msm_jit_batch` with B = 4 at 2^16
    against four single MSMs; `kzg.commit_batch` on a BLS12-381 test SRS
    against `commit` row by row (and python ints); `msm_jit_static` with a
    too-small cap_total on equal scalars raising "occupancy"; one profiled
-   2^18 MSM; and both kernels' rows at the path's shapes.
+   2^18 MSM; and the four kernels' rows at the path's shapes.
 
 Prints one JSON line for the 2^18 MSM path, one for the 2^26 path, one
 for the PLONK path, one for the Goldilocks NTT, one for the SW route, one
@@ -135,9 +140,9 @@ IMAD_PER_MULMOD = 2 * 288 + 12
 # the same for an 8-word (Fr) mulmod: 128 wide products and 8 low-half
 IMAD_PER_MULMOD_FR = 2 * 128 + 8
 MULMODS = {"madd": 7, "add": 9, "dbl": 8,
-           # the SW (RCB a = 0) adds, counting the two products by the
-           # small constant 3b as the additions they could be
-           "sw_madd": 11, "sw_add": 12}
+           # the SW (RCB a = 0) adds and doubling, the products by the
+           # small constant 3b being additions
+           "sw_madd": 11, "sw_add": 12, "sw_dbl": 8}
 SW_LOG = 18                                # the SW route at 2^18 (prize 4)
 SW_BATCH_LOG, SW_BATCH = 16, 4             # msm_jit_batch: B x 2^16
 SW_SRS_LOG = 12                            # the BLS12-381 test SRS
@@ -165,6 +170,8 @@ KERNEL_SYMBOLS = {"te_dbl_chain": ("k_dbl_chain",),
                   "te_combine": ("k_combine",),
                   "sw_gather_accumulate": ("k_sw_gather_accumulate",),
                   "sw_full_add": ("k_sw_full_add",),
+                  "sw_running_sum": ("k_sw_running_sum",),
+                  "sw_combine": ("k_sw_combine",),
                   "fr_ntt": ("k_ntt_tile", "k_ntt_stage"),
                   "gl_ntt": ("k_gl_ntt",)}
 
@@ -309,8 +316,8 @@ def check_kernels_random(curve, dev, lanes):
 
 
 def check_sw_kernels(curve, dev, lanes):
-    """Phase 3d: sw_gather_accumulate and sw_full_add == their plain
-    versions, bit for bit, at `lanes` lanes with `curve`'s constants."""
+    """Phase 3d: the four SW kernels == their plain versions, bit for bit,
+    at `lanes` lanes with `curve`'s constants."""
     from zprize_tpu_torch.curve import sw
     from zprize_tpu_torch.field import fp
     from zprize_tpu_torch.msm import accum_kernel as ak
@@ -375,6 +382,43 @@ def check_sw_kernels(curve, dev, lanes):
     ak.sw_full_add(curve, doubled, doubled, skip)    # acc + acc in place
     results["sw_full_add (acc + acc)"] = max_abs_err(
         doubled, ak.sw_full_add_plain(curve, acc.clone(), acc, skip))
+
+    # sw_combine: S = 4 window sums a lane, c = 3, from the same lanes;
+    # lane 8 adds a window sum equal to the accumulator (2^c W_3), lane 9
+    # its negative, lanes 10-12 identities, 13-15 edge words
+    steps, c = 4, 3
+    ws = torch.stack([acc, q, acc.flip(0), q.flip(0)]).contiguous()
+    top = sw.unpack(ws[-1, 8:10])
+    for _ in range(c):
+        top = sw.dbl(curve, top)
+    ws[-2, 8] = sw.pack(top)[0]
+    ws[-2, 9] = sw.pack(sw.neg(curve, top))[1]
+    ws[:, 10] = ident                                # an identity lane
+    ws[-1, 11] = ident                               # identity on top
+    ws[0, 12] = ident
+    for k, v in enumerate((0, 1, f.p - 1)):          # edge words
+        ws[k, 13 + k] = fp.raw_words(f, v, dev).expand(3, nw)
+    results[f"sw_combine S={steps} c={c}"] = max_abs_err(
+        ak.sw_combine(curve, ws, c), ak.sw_combine_plain(curve, ws, c))
+
+    # sw_running_sum: chunks of S points drawn from the same lanes; an
+    # identity lane, a lane of one point repeated (the suffix sum doubles
+    # at every step), a lane of P, -P, .. and a lane of edge values
+    pool = torch.cat([acc, q])
+    minus = sw.pack(sw.neg(curve, sw.unpack(real[1])))
+    for steps in (8, 16):
+        pick = torch.tensor([[rng.randrange(pool.shape[0])
+                              for _ in range(steps)] for _ in range(lanes)],
+                            device=dev)
+        chunks = pool[pick]
+        chunks[0] = ident
+        chunks[1] = real[0]
+        chunks[2] = torch.stack([real[1], minus] * (steps // 2))
+        chunks[3] = acc[13 + torch.arange(steps, device=dev) % 3]
+        t_out, u_out = ak.sw_running_sum(curve, chunks)
+        t_ref, u_ref = ak.sw_running_sum_plain(curve, chunks)
+        results[f"sw_running_sum S={steps}"] = max(
+            max_abs_err(t_out, t_ref), max_abs_err(u_out, u_ref))
     torch.cuda.synchronize()
     for name, err in results.items():
         log(f"{curve.name} kernel vs plain, {lanes} lanes: {name} "
@@ -675,6 +719,10 @@ def sw_path(dev):
         if stray or 0 in (launched[name] for name in ak.SW_KERNELS):
             raise AssertionError(f"bls12_381 MSM {k} launches {launched} "
                                  "are not the SW route's")
+    log(f"bls12_381 2^{SW_LOG} MSM: sw_full_add "
+        f"{per_msm[-1]['sw_full_add']}, sw_running_sum "
+        f"{per_msm[-1]['sw_running_sum']}, sw_combine "
+        f"{per_msm[-1]['sw_combine']} launches")
     mean = sum(times) / len(times)
     summary = {
         "metric": f"bls12_381_msm_2^{SW_LOG}",
@@ -684,6 +732,7 @@ def sw_path(dev):
         "init_s": init_s,
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
         "launches_per_msm": per_msm[-1],
+        "sw_full_add_per_msm": [m["sw_full_add"] for m in per_msm],
         "oracle_checked_batches": BATCHES + 1,
     }
     summary["bls12_377_sw"] = bls377_sw_vs_te(dev)
@@ -1063,22 +1112,24 @@ def prize_rows(curve, ctx, batch, launches, dev):
 
 
 def sw_rows(curve, ctx, aff, batch, launches, dev):
-    """Both SW kernels at the 2^18 path's shapes, timed beside their plain
-    versions and bounds, and checked against the plain versions:
+    """The four SW kernels at the 2^18 path's shapes, timed beside their
+    plain versions and bounds, and checked against the plain versions:
     sw_gather_accumulate over the full-width window group of one batch,
-    sw_full_add at the lanes of one step of that group's merge scan."""
+    sw_running_sum over that group's merge chunks, sw_full_add at the
+    merge's widest tree level, sw_combine over the MSM's window sums (one
+    lane)."""
     from zprize_tpu_torch.field import fp
     from zprize_tpu_torch.msm import accum_kernel as ak
-    from zprize_tpu_torch.msm import pippenger
+    from zprize_tpu_torch.msm import pippenger, te_path
     p = ctx.prepared
     nw = fp.n_words(curve.field)
     pt_bytes = 3 * 4 * nw
     full = 1 << (p.c - 1)
     s = torch.from_numpy(batch.view(np.int16)).to(dev)
     digits = pippenger.sw_digits(curve, p.c, s, aff.inf)
-    ws = pippenger.window_groups(curve, p.c, digits.shape[0], full)[full]
+    groups = pippenger.window_groups(curve, p.c, digits.shape[0], full)
+    ws = groups[full]
     runs = pippenger.sort_windows(digits[torch.tensor(ws, device=dev)], full)
-    del digits
     out = []
 
     def row(name, replaces, fn, plain, reps, mulmods, n_bytes, **shape):
@@ -1087,7 +1138,9 @@ def sw_rows(curve, ctx, aff, batch, launches, dev):
         ref = plain()
         torch.cuda.synchronize()
         plain_ms = (time.time() - t0) * 1e3
-        err = max_abs_err(fn(), ref)
+        err = max(max_abs_err(a, b) for a, b in zip(
+            fn() if isinstance(ref, tuple) else (fn(),),
+            ref if isinstance(ref, tuple) else (ref,)))
         if err != 0:
             raise AssertionError(f"{name} != plain at the SW path's shapes")
         b_ms, b_by = bound_ms(mulmods, n_bytes)
@@ -1113,9 +1166,19 @@ def sw_rows(curve, ctx, aff, batch, launches, dev):
                also_replaces=["zprize_tpu/msm/accum_kernel.py:252",
                               "zprize_tpu/msm/accum_kernel.py:304"])
     del runs
-    # one step of the merge scan: (columns, bits, windows) lanes, on the
-    # bucket sums just made
-    lanes = min(full, 128) * full.bit_length() * len(ws)
+    # the merge's running sums: the chunks of the group's bucket sums
+    n_chunks, steps = te_path.triangle_split(len(ws), full)
+    chunks = sums.reshape(len(ws) * n_chunks, steps, 3, nw)
+    lanes = chunks.shape[0]
+    row("sw_running_sum",
+        "zprize_tpu/msm/accum_kernel.py:138 (the scan of "
+        "merge_buckets_pallas, zprize_tpu/msm/accum_kernel.py:185)",
+        lambda: ak.sw_running_sum(curve, chunks),
+        lambda: ak.sw_running_sum_plain(curve, chunks), 10,
+        lanes * 2 * (steps - 1) * MULMODS["sw_add"],
+        chunks.numel() * 4 + 2 * lanes * pt_bytes, lanes=lanes, steps=steps)
+    # the merge's widest tree level: C/2 x (1 + bits) x W lanes
+    lanes = n_chunks // 2 * (1 + (n_chunks - 1).bit_length()) * len(ws)
     flat = sums.reshape(-1, 3, nw)
     idx = torch.arange(lanes, device=dev)
     acc, q = flat[idx % flat.shape[0]], flat[(idx + 1) % flat.shape[0]]
@@ -1124,6 +1187,19 @@ def sw_rows(curve, ctx, aff, batch, launches, dev):
         lambda: ak.sw_full_add(curve, acc.clone(), q, skip),
         lambda: ak.sw_full_add_plain(curve, acc.clone(), q, skip), 20,
         lanes * MULMODS["sw_add"], lanes * (3 * pt_bytes + 4), lanes=lanes)
+    del sums, acc, q
+    # the final combine: the MSM's window sums, one lane
+    window_sums = pippenger.window_sums_sw(curve, p.c, p.x, p.y, digits,
+                                           groups)[:, None].contiguous()
+    n_steps = window_sums.shape[0]
+    row("sw_combine",
+        "zprize_tpu/msm/accum_kernel.py:138 (the serial launches of "
+        "combine_windows, zprize_tpu/msm/pippenger.py:235)",
+        lambda: ak.sw_combine(curve, window_sums, p.c),
+        lambda: ak.sw_combine_plain(curve, window_sums, p.c), 10,
+        (n_steps - 1) * (p.c * MULMODS["sw_dbl"] + MULMODS["sw_add"]),
+        window_sums.numel() * 4 + pt_bytes, lanes=1, steps=n_steps,
+        c=p.c)
     return out
 
 

@@ -3,7 +3,11 @@ against the reference package's `gl_ops`, `gl_kernel` (its Pallas kernels
 in interpret mode) and `fourstep`, and against python ints, on the CPU,
 where `gl_ntt` runs its plain version (the hand-written kernel is held
 against that plain version on the card by chip_smoke.py, phases 3c and 8).
-Exact: every value compares as a canonical int (tolerance 0)."""
+The packed NTTs are held against python-int transforms of the reference
+tests' inputs; the reference's Pallas kernels (about 8 s in interpret
+mode on a CPU) against the same ints by the slow test
+`test_reference_pallas_ntts_match_ints`.  Exact: every value compares as
+a canonical int (tolerance 0)."""
 
 import random
 
@@ -61,30 +65,50 @@ def _columns(log_n, b, seed):
     return [flat[i * b:(i + 1) * b] for i in range(1 << log_n)]
 
 
+def _ntt_cols(rows, log_n, inverse):
+    """Natural-order NTT of each column of rows (n lists of B ints) on
+    python ints, scaled by n^-1 for the inverse; flattened row-major."""
+    w = primitive_root(GL, log_n)
+    scale = 1
+    if inverse:
+        w, scale = pow(w, -1, Q), pow(1 << log_n, -1, Q)
+    cols = [ntt_ints([r[c] for r in rows], w, Q) for c in range(len(rows[0]))]
+    return [cols[c][k] * scale % Q for k in range(1 << log_n)
+            for c in range(len(rows[0]))]
+
+
 @pytest.fixture(scope="module")
 def reference_runs():
-    """The reference's Pallas NTTs in interpret mode, four calls in all:
-    ntt_packed at 2^8 x 2 forward and inverse, ntt_fourstep_packed(5, 5),
-    and ntt_fourstep_packed(13, 1), whose column pass is above the
-    2^12 tile."""
+    """The inputs of the reference's Pallas NTT runs (ntt_packed at 2^8 x 2
+    forward and inverse, ntt_fourstep_packed(5, 5), and
+    ntt_fourstep_packed(13, 1), whose column pass is above the 2^12 tile)
+    as its (lo, hi) planes, and their transforms on python ints."""
     rows = _columns(8, 2, 5)
-    lo, hi = _planes(rows)
-    flo, fhi = ref_gk.ntt_packed(8, jnp.asarray(lo), jnp.asarray(hi),
-                                 interpret=True, tile=2)
-    ilo, ihi = ref_gk.ntt_packed(8, jnp.asarray(lo), jnp.asarray(hi),
-                                 inverse=True, interpret=True, tile=2)
     vec = _lazy_values(1 << 10, 6)
-    vlo, vhi = _planes(vec)
-    slo, shi = ref_gk.ntt_fourstep_packed(5, 5, jnp.asarray(vlo),
-                                          jnp.asarray(vhi), interpret=True)
     big = _lazy_values(1 << 14, 7)
-    blo, bhi = _planes(big)
-    tlo, thi = ref_gk.ntt_fourstep_packed(13, 1, jnp.asarray(blo),
-                                          jnp.asarray(bhi), interpret=True)
-    return {"rows": (lo, hi), "forward": _ref_ints(flo, fhi),
-            "inverse": _ref_ints(ilo, ihi), "vec": (vlo, vhi),
-            "fourstep": _ref_ints(slo, shi), "big": (blo, bhi),
-            "fourstep_13_1": _ref_ints(tlo, thi)}
+    return {"rows": _planes(rows), "forward": _ntt_cols(rows, 8, False),
+            "inverse": _ntt_cols(rows, 8, True), "vec": _planes(vec),
+            "fourstep": _ntt_cols([[v] for v in vec], 10, False),
+            "big": _planes(big),
+            "fourstep_13_1": _ntt_cols([[v] for v in big], 14, False)}
+
+
+@pytest.mark.slow
+def test_reference_pallas_ntts_match_ints(reference_runs):
+    """The reference's Pallas NTTs in interpret mode, on the same planes,
+    equal the python-int transforms the fast tests hold the port to."""
+    lo, hi = (jnp.asarray(a) for a in reference_runs["rows"])
+    flo, fhi = ref_gk.ntt_packed(8, lo, hi, interpret=True, tile=2)
+    ilo, ihi = ref_gk.ntt_packed(8, lo, hi, inverse=True, interpret=True,
+                                 tile=2)
+    vlo, vhi = (jnp.asarray(a) for a in reference_runs["vec"])
+    slo, shi = ref_gk.ntt_fourstep_packed(5, 5, vlo, vhi, interpret=True)
+    blo, bhi = (jnp.asarray(a) for a in reference_runs["big"])
+    tlo, thi = ref_gk.ntt_fourstep_packed(13, 1, blo, bhi, interpret=True)
+    assert _ref_ints(flo, fhi) == reference_runs["forward"]
+    assert _ref_ints(ilo, ihi) == reference_runs["inverse"]
+    assert _ref_ints(slo, shi) == reference_runs["fourstep"]
+    assert _ref_ints(tlo, thi) == reference_runs["fourstep_13_1"]
 
 
 @pytest.mark.parametrize("name", ["add", "sub", "mul"])

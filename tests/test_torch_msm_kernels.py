@@ -81,35 +81,73 @@ def _ref_affine(pt):
              int(y) * pow(int(z), P - 2, P) % P) for x, y, z in zip(xs, ys, zs)]
 
 
+DBL_N, DBL_SHIFT, DBL_M, DBL_IDENT = 8, 3, 3, 2
+
+
+def _dbl_chain_inputs():
+    pts = oracle.generator_chain(CURVE, DBL_N)
+    pts[DBL_IDENT] = None
+    return (pts, [0 if q is None else q[0] for q in pts],
+            [1 if q is None else q[1] for q in pts], [q is None for q in pts])
+
+
+def _collapse_table_ints(pts):
+    """Rows j*n + i of the window-collapse table on python ints: the
+    operand (Y+X, Y-X, 2d·X·Y) of the TE image of 2^(shift·j)·P_i; an
+    identity lane the identity operand (1, 1, 0)."""
+    k = te.te_params(CURVE).k
+    rows = []
+    for j in range(DBL_M):
+        for q in pts:
+            if q is None:
+                rows.append((1, 1, 0))
+                continue
+            x, y = oracle.te_affine_ints(
+                CURVE, oracle.ec_mul(q, 1 << (DBL_SHIFT * j), P))
+            rows.append(((y + x) % P, (y - x) % P, k * x * y % P))
+    return rows
+
+
 def test_dbl_chain_table_matches_reference():
     """The plain te_dbl_chain through prepare_points_collapsed builds the
-    same table as the reference (carried over with prepared_from_reference),
-    identity lane included."""
-    n, shift, m = 8, 3, 3
-    pts = oracle.generator_chain(CURVE, n)
-    pts[2] = None
-    xs = [0 if q is None else q[0] for q in pts]
-    ys = [1 if q is None else q[1] for q in pts]
-    inf = [q is None for q in pts]
-    ref_packed, ref_bad = ref_te_path.prepare_points_collapsed(
-        REF_CURVE, ref_fp.from_ints(REF_CURVE.field, xs),
-        ref_fp.from_ints(REF_CURVE.field, ys), jnp.asarray(inf), shift, m)
-    assert not bool(ref_bad)
-    ref = convert.prepared_from_reference(CURVE, np.asarray(ref_packed), 1,
-                                          1, m, n, device="cpu")
+    table of python ints (identity lane included), which the reference's
+    table equals (`test_reference_collapse_table_matches_ints`, slow:
+    about 18 s of JAX on a CPU)."""
+    pts, xs, ys, inf = _dbl_chain_inputs()
     ours = te_path.prepare_points_collapsed(
         CURVE, fp.from_ints(CURVE.field, xs), fp.from_ints(CURVE.field, ys),
-        torch.tensor(inf), shift, m)
-    assert ours.shape == (m * n, 3, fp.n_words(CURVE.field))
-    # identity lane 2 at blocks j >= 1: the reference normalises
-    # dbl(identity) = (0, -1, -1, 0) with z forced to 1 and stores the
-    # operand of (0, -1); the port stores the identity operand (1, 1, 0).
-    # Those rows are never read (identity lanes have zero digits).
-    ident_rows = [j * n + 2 for j in range(1, m)]
-    keep = [r for r in range(m * n) if r not in ident_rows]
-    assert torch.equal(ours[keep], ref.table[keep])
+        torch.tensor(inf), DBL_SHIFT, DBL_M)
+    assert ours.shape == (DBL_M * DBL_N, 3, fp.n_words(CURVE.field))
+    got = fp.to_ints(CURVE.field, ours).tolist()
+    assert [tuple(int(v) for v in row) for row in got] == (
+        _collapse_table_ints(pts))
     ident = te.pack(te.identity_pre(CURVE))
-    assert all(torch.equal(ours[r], ident) for r in ident_rows + [2])
+    assert all(torch.equal(ours[j * DBL_N + DBL_IDENT], ident)
+               for j in range(DBL_M))
+
+
+@pytest.mark.slow
+def test_reference_collapse_table_matches_ints():
+    """The reference's prepare_points_collapsed, carried over with
+    prepared_from_reference, equals the python-int table but at the
+    identity lane's rows of blocks j >= 1: the reference normalises
+    dbl(identity) = (0, -1, -1, 0) with z forced to 1 and stores the
+    operand of (0, -1); the port stores the identity operand (1, 1, 0).
+    Those rows are never read (identity lanes have zero digits)."""
+    pts, xs, ys, inf = _dbl_chain_inputs()
+    ref_packed, ref_bad = ref_te_path.prepare_points_collapsed(
+        REF_CURVE, ref_fp.from_ints(REF_CURVE.field, xs),
+        ref_fp.from_ints(REF_CURVE.field, ys), jnp.asarray(inf), DBL_SHIFT,
+        DBL_M)
+    assert not bool(ref_bad)
+    ref = convert.prepared_from_reference(CURVE, np.asarray(ref_packed), 1,
+                                          1, DBL_M, DBL_N, device="cpu")
+    got = [tuple(int(v) for v in row)
+           for row in fp.to_ints(CURVE.field, ref.table).tolist()]
+    expect = _collapse_table_ints(pts)
+    keep = [r for r in range(DBL_M * DBL_N)
+            if r % DBL_N != DBL_IDENT or r < DBL_N]
+    assert [got[r] for r in keep] == [expect[r] for r in keep]
 
 
 def test_bucket_sums_match_reference(te_affine):
@@ -259,10 +297,30 @@ def test_running_sum_checks_its_input_and_runs_plain_on_cpu(te_affine):
         ak.te_running_sum(CURVE, pts.to("meta"))
 
 
+def _bit_merge_case(te_affine):
+    """Two windows of 16 buckets: bucket b of window w holds the chain
+    point (16w + b)·G at a random projective scale."""
+    return _both(_extended_ints(te_affine, list(range(32)), 5), (2, 16))
+
+
 def test_bit_decomposed_merge_matches_reference(te_affine):
-    """merge_buckets_te (two windows of 16 buckets)."""
-    coords = _extended_ints(te_affine, list(range(32)), 5)
-    ours, ref = _both(coords, (2, 16))
+    """merge_buckets_te (two windows of 16 buckets) against python ints:
+    window w sums b·(16w + b)·G, mapped onto the TE form; the reference's
+    merge gives the same points (`test_reference_bit_decomposed_merge`,
+    slow: about 9 s of JAX on a CPU)."""
+    ours, _ = _bit_merge_case(te_affine)
+    got = te_path.merge_buckets_te(CURVE, 5, ours)
+    g = oracle.generator(CURVE)
+    assert _affine(got) == [oracle.te_affine_ints(CURVE, oracle.ec_mul(
+        g, sum(b * (16 * w + b) for b in range(1, 17)), P))
+        for w in range(2)]
+
+
+@pytest.mark.slow
+def test_reference_bit_decomposed_merge(te_affine):
+    """The reference's merge_buckets_te on the same two windows equals the
+    port's."""
+    ours, ref = _bit_merge_case(te_affine)
     got = te_path.merge_buckets_te(CURVE, 5, ours)
     expect = ref_te_path.merge_buckets_te(REF_CURVE, 5, ref)
     assert _affine(got) == _ref_affine(expect)

@@ -19,6 +19,7 @@ from zprize_tpu.curve import sw as ref_sw
 from zprize_tpu.curve.spec import BLS12_377_G1 as REF_377
 from zprize_tpu.curve.spec import BLS12_381_G1 as REF_381
 from zprize_tpu.field import fp as ref_fp
+from zprize_tpu.field.spec import int_from_limbs
 from zprize_tpu.msm import pippenger as ref_pippenger
 from zprize_tpu_torch.curve import sw
 from zprize_tpu_torch.curve.spec import BLS12_377_G1, BLS12_381_G1
@@ -60,12 +61,18 @@ def _ints(curve, p: sw.Point):
 
 
 def _ref_ints(curve, p):
-    a = ref_sw.to_affine(curve, ref_sw.Point(
-        *(t.reshape(-1, t.shape[-1]) for t in p)))
-    xs, ys = ref_fp.to_ints(curve.field, a.x), ref_fp.to_ints(curve.field,
-                                                              a.y)
-    return [None if i else (int(x), int(y))
-            for x, y, i in zip(xs, ys, np.asarray(a.inf).tolist())]
+    """A lane-batched reference point -> [(x, y) | None]: its limb planes
+    read with numpy (the redundant base-2^15 limbs summed exactly, mod
+    p), then affine on python ints."""
+    prime = curve.field.p
+    xs, ys, zs = ([int_from_limbs(row) % prime
+                   for row in np.asarray(t).reshape(-1, t.shape[-1])]
+                  for t in p)
+    out = []
+    for x, y, z in zip(xs, ys, zs):
+        zi = pow(z, -1, prime) if z else None
+        out.append(None if zi is None else (x * zi % prime, y * zi % prime))
+    return out
 
 
 @pytest.mark.parametrize("name", sorted(CURVES))

@@ -3,7 +3,10 @@ the reference package's `curve.te` on the same 64 lanes (G-chain points,
 one identity lane).
 
 Both sides run the same formulas with exact field arithmetic, so even the
-projective coordinates agree; they are compared as canonical ints."""
+projective coordinates agree; they are compared as canonical ints.  The
+SW -> TE map of the lanes is held against python ints; the reference's
+map (about 15 s of JAX on a CPU) against the same ints by the slow test
+`test_reference_sw_to_te_matches_ints`."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -13,6 +16,7 @@ import torch
 from zprize_tpu.curve import te as ref_te
 from zprize_tpu.curve.spec import BLS12_377_G1 as REF_CURVE
 from zprize_tpu.field import fp as ref_fp
+from zprize_tpu.field.spec import int_from_limbs
 from zprize_tpu_torch.curve import sw, te
 from zprize_tpu_torch.curve.spec import BLS12_377_G1 as CURVE
 from zprize_tpu_torch.field import fp
@@ -33,7 +37,10 @@ def _ints(a):
 
 
 def _ref_ints(a):
-    return [int(v) for v in ref_fp.to_ints(REF_CURVE.field, a).reshape(-1)]
+    """Reference limb planes -> canonical ints (the redundant base-2^15
+    limbs summed exactly, mod p)."""
+    limbs = np.asarray(a).reshape(-1, a.shape[-1])
+    return [int_from_limbs(row) % REF_CURVE.field.p for row in limbs]
 
 
 def _both(values):
@@ -42,24 +49,36 @@ def _both(values):
             ref_fp.from_ints(REF_CURVE.field, values))
 
 
-@pytest.fixture(scope="module")
-def lanes():
+def _sw_to_te_ints(pts):
+    return [oracle.te_affine_ints(CURVE, pt) for pt in pts]
+
+
+def _lane_inputs():
     pts = oracle.generator_chain(CURVE, N)
     pts[IDENT] = None
     xs = [0 if p is None else p[0] for p in pts]
     ys = [1 if p is None else p[1] for p in pts]
-    inf = [p is None for p in pts]
-    (x, rx), (y, ry) = _both(xs), _both(ys)
+    return pts, xs, ys, [p is None for p in pts]
+
+
+@pytest.fixture(scope="module")
+def lanes():
+    """The lanes' TE images from the port, and as reference planes built
+    from the python-int map."""
+    pts, xs, ys, inf = _lane_inputs()
+    x, y = fp.from_ints(CURVE.field, xs), fp.from_ints(CURVE.field, ys)
     ours = te.sw_to_te(CURVE, x, y, torch.tensor(inf))
-    ref = ref_te.sw_to_te(REF_CURVE, rx, ry, jnp.asarray(inf))
+    txs, tys = zip(*_sw_to_te_ints(pts))
+    ref = (ref_fp.from_ints(REF_CURVE.field, list(txs)),
+           ref_fp.from_ints(REF_CURVE.field, list(tys)), None)
     return pts, ours, ref
 
 
 def test_sw_to_te_and_precompute_match_reference(lanes):
-    _, (tx, ty, bad), (rtx, rty, rbad) = lanes
-    assert _ints(tx) == _ref_ints(rtx)
-    assert _ints(ty) == _ref_ints(rty)
-    assert bad.tolist() == np.asarray(rbad).tolist() == [False] * N
+    pts, (tx, ty, bad), (rtx, rty, _) = lanes
+    expect = _sw_to_te_ints(pts)
+    assert list(zip(_ints(tx), _ints(ty))) == expect
+    assert bad.tolist() == [False] * N
     ours = te.precompute(CURVE, tx, ty)
     ref = ref_te.precompute(REF_CURVE, rtx, rty)
     for a, b in zip(ours, ref):
@@ -122,6 +141,18 @@ def test_te_to_sw_host_round_trip(lanes):
     p = CURVE.field.p
     assert te.te_to_sw_host(CURVE, 0, p - 1, 1) == (
         te.te_params(CURVE).alpha, 0, 1)
+
+
+@pytest.mark.slow
+def test_reference_sw_to_te_matches_ints():
+    """The reference's sw_to_te on the lanes equals the python-int map that
+    the fast tests hold the port against."""
+    pts, xs, ys, inf = _lane_inputs()
+    rx = ref_fp.from_ints(REF_CURVE.field, xs)
+    ry = ref_fp.from_ints(REF_CURVE.field, ys)
+    rtx, rty, rbad = ref_te.sw_to_te(REF_CURVE, rx, ry, jnp.asarray(inf))
+    assert list(zip(_ref_ints(rtx), _ref_ints(rty))) == _sw_to_te_ints(pts)
+    assert np.asarray(rbad).tolist() == [False] * N
 
 
 def test_te_params_match_reference():

@@ -36,6 +36,7 @@
 #include <cstdint>
 
 #include "fq.cuh"
+#include "ring.cuh"
 
 // BLS12-377/381 base field: 12 words (csrc/fq.cuh)
 constexpr int NW = 12;
@@ -184,42 +185,13 @@ __global__ void __launch_bounds__(BLOCK)
 }
 
 // Copy one 144-byte operand row (nine 16-byte words, 16-byte aligned) into
-// a thread's ring slot: chunk k goes to slot[k * BLOCK], so the lanes of a
-// warp read a chunk back as one conflict-free 128-bit access.  cp.async.cg
-// goes through L2 only: the rows are gathered at random and read once.
+// a thread's ring slot (csrc/ring.cuh).
 __device__ __forceinline__ void copy_row(uint4* slot, const uint32_t* row) {
   const uint4* src = reinterpret_cast<const uint4*>(row);
 #pragma unroll
   for (int k = 0; k < ROW_CHUNKS; ++k) {
-    const uint32_t dst = (uint32_t)__cvta_generic_to_shared(slot + k * BLOCK);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst),
-                 "l"(src + k)
-                 : "memory");
+    ring::copy16(slot + k * BLOCK, src + k);
   }
-}
-
-__device__ __forceinline__ void copy_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-// wait until at most `pending` of this thread's copy groups are in flight
-template <int pending>
-__device__ __forceinline__ void copy_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(pending) : "memory");
-}
-
-// operand word w (three chunks) of the row in a ring slot
-__device__ __forceinline__ Fq slot_word(const uint4* slot, int w) {
-  Fq r;
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    const uint4 v = slot[(3 * w + k) * BLOCK];
-    r.v[4 * k] = v.x;
-    r.v[4 * k + 1] = v.y;
-    r.v[4 * k + 2] = v.z;
-    r.v[4 * k + 3] = v.w;
-  }
-  return r;
 }
 
 // te_gather_accumulate: replaces make_te_mixed_add (and the rank loop of
@@ -259,7 +231,7 @@ __global__ void __launch_bounds__(BLOCK, GATHER_MIN_BLOCKS)
                         const long long* __restrict__ counts, uint32_t* out,
                         long long n, long long nbe, long long lanes) {
   __shared__ Params P;
-  __shared__ uint4 ring[2 * STAGE];
+  __shared__ uint4 stages[2 * STAGE];
   fq::load_params(P, params);
   long long i = (long long)blockIdx.x * BLOCK + threadIdx.x;
   if (i >= lanes) return;
@@ -267,12 +239,12 @@ __global__ void __launch_bounds__(BLOCK, GATHER_MIN_BLOCKS)
   const long long count = counts[i];
   const long long* idx = perm + r0;
   const int32_t* sg = sign + r0;
-  uint4* const slot0 = ring + threadIdx.x;  // stage s at slot0 + s * STAGE
+  uint4* const slot0 = stages + threadIdx.x;  // stage s at slot0 + s * STAGE
   // rows 0 and 1 in flight, one copy group each
   if (count > 0) copy_row(slot0, table + idx[0] * PRE_WORDS);
-  copy_commit();
+  ring::commit();
   if (count > 1) copy_row(slot0 + STAGE, table + idx[1] * PRE_WORDS);
-  copy_commit();
+  ring::commit();
   long long next = count > 2 ? idx[2] : 0;
   bool neg = count > 0 && sg[0] != 0;
   Pt acc = identity(P);
@@ -281,10 +253,11 @@ __global__ void __launch_bounds__(BLOCK, GATHER_MIN_BLOCKS)
     const long long ahead = k + 3 < count ? idx[k + 3] : 0;
     const bool neg_next = k + 1 < count && sg[k + 1] != 0;
     uint4* const slot = slot0 + (k & 1) * STAGE;
-    copy_wait<1>();  // every group but the newest has landed: row k has
-    acc = madd(acc, [&](int w) { return slot_word(slot, w); }, neg, P);
+    ring::wait<1>();  // every group but the newest has landed: row k has
+    acc = madd(acc, [&](int w) { return ring::word<NW, BLOCK>(slot, w); },
+               neg, P);
     if (k + 2 < count) copy_row(slot, table + next * PRE_WORDS);
-    copy_commit();
+    ring::commit();
     next = ahead;
     neg = neg_next;
   }

@@ -74,15 +74,6 @@ def neg(curve: CurveSpec, p: Point) -> Point:
     return Point(p.x, fp.neg(curve.field, p.y), p.z)
 
 
-def _stacked(op, f, pairs) -> list[torch.Tensor]:
-    """op(a, b) of independent (a, b) pairs in one stacked call of the
-    plain engine (fewer, wider torch ops; the values are the same)."""
-    a, b = zip(*pairs)
-    shape = torch.broadcast_shapes(*(t.shape for t in a + b))
-    return list(op(f, torch.stack([t.expand(shape) for t in a]),
-                   torch.stack([t.expand(shape) for t in b])).unbind(0))
-
-
 def add(curve: CurveSpec, p: Point, q: Point) -> Point:
     """Complete projective addition (RCB a = 0): 12M + two products by 3b.
 
@@ -91,15 +82,15 @@ def add(curve: CurveSpec, p: Point, q: Point) -> Point:
     Z3 = (Y1Z2+Y2Z1)(Y1Y2+3bZ1Z2) + (X1Y2+X2Y1)(3X1X2)
     """
     f = curve.field
-    pxy, qxy, pyz, qyz, pxz, qxz = _stacked(fp.add, f, [
+    pxy, qxy, pyz, qyz, pxz, qxz = fp.stacked(fp.add, f, [
         (p.x, p.y), (q.x, q.y), (p.y, p.z), (q.y, q.z), (p.x, p.z),
         (q.x, q.z)])
-    t0, t1, t2, s_xy, s_yz, s_xz = _stacked(fp.mul, f, [
+    t0, t1, t2, s_xy, s_yz, s_xz = fp.stacked(fp.mul, f, [
         (p.x, q.x), (p.y, q.y), (p.z, q.z), (pxy, qxy), (pyz, qyz),
         (pxz, qxz)])
-    m_xy, m_yz, m_xz = _stacked(fp.sub, f, zip(
-        (s_xy, s_yz, s_xz), _stacked(fp.add, f, [(t0, t1), (t1, t2),
-                                                 (t0, t2)])))
+    m_xy, m_yz, m_xz = fp.stacked(fp.sub, f, zip(
+        (s_xy, s_yz, s_xz), fp.stacked(fp.add, f, [(t0, t1), (t1, t2),
+                                                   (t0, t2)])))
     return _add_tail(curve, t0, t1, t2, m_xy, m_yz, m_xz)
 
 
@@ -107,10 +98,10 @@ def add_mixed(curve: CurveSpec, p: Point, a: Affine) -> Point:
     """Complete mixed addition p + a (11M + two products by 3b); `a.inf`
     lanes pass `p` through."""
     f = curve.field
-    pxy, axy = _stacked(fp.add, f, [(p.x, p.y), (a.x, a.y)])
-    t0, t1, s_xy, yz, xz = _stacked(fp.mul, f, [
+    pxy, axy = fp.stacked(fp.add, f, [(p.x, p.y), (a.x, a.y)])
+    t0, t1, s_xy, yz, xz = fp.stacked(fp.mul, f, [
         (p.x, a.x), (p.y, a.y), (pxy, axy), (a.y, p.z), (a.x, p.z)])
-    t01, m_yz, m_xz = _stacked(fp.add, f, [(t0, t1), (yz, p.y), (xz, p.x)])
+    t01, m_yz, m_xz = fp.stacked(fp.add, f, [(t0, t1), (yz, p.y), (xz, p.x)])
     m_xy = fp.sub(f, s_xy, t01)
     return select(a.inf, p, _add_tail(curve, t0, t1, p.z, m_xy, m_yz, m_xz))
 
@@ -118,19 +109,41 @@ def add_mixed(curve: CurveSpec, p: Point, a: Affine) -> Point:
 def _add_tail(curve: CurveSpec, t0, t1, t2, m_xy, m_yz, m_xz) -> Point:
     f = curve.field
     b3 = fp.constant(f, curve.b3, (), t0.device)
-    b3t2, w = _stacked(fp.mul, f, [(t2, b3), (m_xz, b3)])
+    b3t2, w = fp.stacked(fp.mul, f, [(t2, b3), (m_xz, b3)])
     u = fp.sub(f, t1, b3t2)
-    v, t00 = _stacked(fp.add, f, [(t1, b3t2), (t0, t0)])
+    v, t00 = fp.stacked(fp.add, f, [(t1, b3t2), (t0, t0)])
     t3 = fp.add(f, t00, t0)
-    a, b, c, d, e, g = _stacked(fp.mul, f, [
+    a, b, c, d, e, g = fp.stacked(fp.mul, f, [
         (m_xy, u), (m_yz, w), (v, u), (t3, w), (m_yz, v), (m_xy, t3)])
-    y3, z3 = _stacked(fp.add, f, [(c, d), (e, g)])
+    y3, z3 = fp.stacked(fp.add, f, [(c, d), (e, g)])
     return Point(fp.sub(f, a, b), y3, z3)
 
 
 def dbl(curve: CurveSpec, p: Point) -> Point:
     """2p through the complete add (as the reference package does)."""
     return add(curve, p, p)
+
+
+def dbl_a0(curve: CurveSpec, p: Point) -> Point:
+    """2p by the dedicated a = 0 doubling (Renes–Costello–Batina,
+    Algorithm 9): 6M + 2S and a product by 3b, complete (the identity
+    doubles to the identity); the projective words differ from `dbl`'s,
+    the point does not.  The doubling of the `sw_combine` kernel.
+
+    X3 = 2XY (Y^2 - 9bZ^2),  Z3 = 8 Y^3 Z
+    Y3 = (Y^2 - 9bZ^2)(Y^2 + 3bZ^2) + 24b Y^2 Z^2
+    """
+    f = curve.field
+    k = fp.constant(f, curve.b3, (), p.x.device)
+    t0, t1, zz, xy = fp.stacked(fp.mul, f, [(p.y, p.y), (p.y, p.z),
+                                          (p.z, p.z), (p.x, p.y)])
+    t2 = fp.mul(f, zz, k)                            # 3b Z^2
+    z8 = fp.mul(f, t0, fp.constant(f, 8, (), p.x.device))
+    x3, z3 = fp.stacked(fp.mul, f, [(t2, z8), (t1, z8)])
+    y3 = fp.add(f, t0, t2)
+    t0 = fp.sub(f, t0, fp.add(f, fp.add(f, t2, t2), t2))
+    ty, tx = fp.stacked(fp.mul, f, [(t0, y3), (t0, xy)])
+    return Point(fp.add(f, tx, tx), fp.add(f, x3, ty), z3)
 
 
 def select(cond: torch.Tensor, p: Point, q: Point) -> Point:

@@ -180,12 +180,14 @@ def select_neg_pre(curve: CurveSpec, sign, q: TePre) -> TePre:
 
 def add_mixed(curve: CurveSpec, p1: TePoint, q: TePre) -> TePoint:
     """Strongly-unified mixed add (madd-2008-hwcd-3, a=-1): 7M + 8A.
-    Handles doubling and either-operand-identity with no selects."""
+    Handles doubling and either-operand-identity with no selects.
+    Independent products and sums share one plain-engine call
+    (`fp.stacked`)."""
     f = curve.field
-    a = fp.mul(f, fp.sub(f, p1.y, p1.x), q.ym)
-    b = fp.mul(f, fp.add(f, p1.y, p1.x), q.yp)
-    c = fp.mul(f, p1.t, q.kt)
-    d = fp.double(f, p1.z)
+    ymx = fp.sub(f, p1.y, p1.x)
+    ypx, d = fp.stacked(fp.add, f, [(p1.y, p1.x), (p1.z, p1.z)])
+    a, b, c = fp.stacked(fp.mul, f, [(ymx, q.ym), (ypx, q.yp),
+                                     (p1.t, q.kt)])
     return _finish(f, a, b, c, d)
 
 
@@ -193,36 +195,36 @@ def add(curve: CurveSpec, p1: TePoint, p2: TePoint) -> TePoint:
     """Strongly-unified full add (add-2008-hwcd-3, a=-1): 8M + 1k + 8A."""
     f = curve.field
     k = fp.constant(f, te_params(curve).k, (), p1.x.device)
-    a = fp.mul(f, fp.sub(f, p1.y, p1.x), fp.sub(f, p2.y, p2.x))
-    b = fp.mul(f, fp.add(f, p1.y, p1.x), fp.add(f, p2.y, p2.x))
-    c = fp.mul(f, fp.mul(f, p1.t, p2.t), k)
-    d = fp.double(f, fp.mul(f, p1.z, p2.z))
+    ymx1, ymx2 = fp.stacked(fp.sub, f, [(p1.y, p1.x), (p2.y, p2.x)])
+    ypx1, ypx2 = fp.stacked(fp.add, f, [(p1.y, p1.x), (p2.y, p2.x)])
+    a, b, tt, zz = fp.stacked(fp.mul, f, [(ymx1, ymx2), (ypx1, ypx2),
+                                          (p1.t, p2.t), (p1.z, p2.z)])
+    c = fp.mul(f, tt, k)
+    d = fp.double(f, zz)
     return _finish(f, a, b, c, d)
 
 
 def dbl(curve: CurveSpec, p1: TePoint) -> TePoint:
     """dbl-2008-hwcd (a=-1): 4M + 4S + 1 double."""
     f = curve.field
-    a = fp.sqr(f, p1.x)
-    b = fp.sqr(f, p1.y)
-    c = fp.double(f, fp.sqr(f, p1.z))
-    d = fp.neg(f, a)                                   # a = -1
-    e = fp.sub(f, fp.sqr(f, fp.add(f, p1.x, p1.y)), fp.add(f, a, b))
-    g = fp.add(f, d, b)
+    xy = fp.add(f, p1.x, p1.y)
+    a, b, zz, s = fp.stacked(fp.mul, f, [(p1.x, p1.x), (p1.y, p1.y),
+                                         (p1.z, p1.z), (xy, xy)])
+    c, ab = fp.stacked(fp.add, f, [(zz, zz), (a, b)])
+    # a = -1: D = -A, G = D + B = B - A, H = D - B = -(A + B)
+    e, g, h = fp.stacked(fp.sub, f, [(s, ab), (b, a),
+                                     (torch.zeros_like(ab), ab)])
     ff = fp.sub(f, g, c)
-    h = fp.sub(f, d, b)
-    return TePoint(fp.mul(f, e, ff), fp.mul(f, g, h),
-                   fp.mul(f, ff, g), fp.mul(f, e, h))
+    return TePoint(*fp.stacked(fp.mul, f, [(e, ff), (g, h), (ff, g),
+                                           (e, h)]))
 
 
 def _finish(f, a, b, c, d) -> TePoint:
     """Shared tail of the hwcd-3 adds: E=B-A, F=D-C, G=D+C, H=B+A."""
-    e = fp.sub(f, b, a)
-    ff = fp.sub(f, d, c)
-    g = fp.add(f, d, c)
-    h = fp.add(f, b, a)
-    return TePoint(fp.mul(f, e, ff), fp.mul(f, g, h),
-                   fp.mul(f, ff, g), fp.mul(f, e, h))
+    e, ff = fp.stacked(fp.sub, f, [(b, a), (d, c)])
+    g, h = fp.stacked(fp.add, f, [(d, c), (b, a)])
+    return TePoint(*fp.stacked(fp.mul, f, [(e, ff), (g, h), (ff, g),
+                                           (e, h)]))
 
 
 # ---------------------------------------------------------------------------

@@ -206,6 +206,15 @@ def double(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     return add(spec, a, a)
 
 
+def stacked(op, spec: FieldSpec, pairs) -> list[torch.Tensor]:
+    """op(spec, a, b) of independent (a, b) pairs in one stacked call
+    (fewer, wider torch ops; the values are the same)."""
+    a, b = zip(*pairs)
+    shape = torch.broadcast_shapes(*(t.shape for t in a + b))
+    return list(op(spec, torch.stack([t.expand(shape) for t in a]),
+                   torch.stack([t.expand(shape) for t in b])).unbind(0))
+
+
 def select(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor
            ) -> torch.Tensor:
     """cond ? a : b per element; `cond` has the batch shape."""

@@ -1,4 +1,4 @@
-"""The eight MSM kernels, six twisted-Edwards and two short-Weierstrass:
+"""The ten MSM kernels, six twisted-Edwards and four short-Weierstrass:
 wrappers, launch counts and plain versions.
 
 Each wrapper takes int32 Montgomery-word tensors (layouts in
@@ -26,6 +26,8 @@ hold each kernel against them bit for bit.
 | te_combine            | make_te_combine                                          |
 | sw_gather_accumulate  | make_mixed_add, make_mixed_add_multi, make_mixed_add_rect (+ their rank loops) |
 | sw_full_add           | make_full_add                                            |
+| sw_running_sum        | the scan launches of make_full_add in merge_buckets_pallas |
+| sw_combine            | the serial make_full_add launches of combine_windows (pippenger.py) and of the merge's fold |
 """
 
 from __future__ import annotations
@@ -42,7 +44,11 @@ from ..field import fp
 TE_KERNELS = ("te_dbl_chain", "te_bucket_accumulate",
               "te_gather_accumulate", "te_full_add", "te_running_sum",
               "te_combine")
-SW_KERNELS = ("sw_gather_accumulate", "sw_full_add")
+SW_KERNELS = ("sw_gather_accumulate", "sw_full_add", "sw_running_sum",
+              "sw_combine")
+# the curves' 3b for which csrc/msm_sw.cu has an instantiation (it
+# multiplies by 3b as a chain of additions): BLS12-377's SW form, BLS12-381
+SW_B3 = (3, 12)
 KERNELS = TE_KERNELS + SW_KERNELS
 
 # launches of each kernel since the last reset_launches()
@@ -80,9 +86,11 @@ def _sw_lib() -> ctypes.CDLL:
     from ..utils import build
     lib = build.load("msm_sw")
     vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.sw_gather_accumulate.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ll,
-                                         ll, ll, vp]
-    lib.sw_full_add.argtypes = [vp, vp, vp, vp, ll, vp]
+    lib.sw_gather_accumulate.argtypes = [vp, ci, vp, vp, vp, vp, vp, vp, vp,
+                                         ll, ll, ll, vp]
+    lib.sw_full_add.argtypes = [vp, ci, vp, vp, vp, ll, vp]
+    lib.sw_running_sum.argtypes = [vp, ci, vp, vp, vp, ll, ci, vp]
+    lib.sw_combine.argtypes = [vp, ci, vp, vp, ci, ll, ci, vp]
     for name in SW_KERNELS:
         getattr(lib, name).restype = ci
     lib.msm_sw_error_string.argtypes = [ci]
@@ -112,6 +120,15 @@ def device_params(curve: CurveSpec, device: torch.device) -> torch.Tensor:
 def sw_params(curve: CurveSpec, device: torch.device) -> torch.Tensor:
     """The SW kernels' constants: k = 3b."""
     return _params(curve.field, curve.b3, device)
+
+
+def _sw_b3(curve: CurveSpec) -> int:
+    """The curve's 3b, which picks the SW kernels' instantiation; raises
+    for a curve they have none for."""
+    if curve.b3 not in SW_B3:
+        raise ValueError(f"{curve.name}: the SW kernels take 3b in {SW_B3}, "
+                         f"not {curve.b3}")
+    return curve.b3
 
 
 def _on_card(*tensors: torch.Tensor) -> bool:
@@ -437,7 +454,8 @@ def sw_gather_accumulate(curve: CurveSpec, px: torch.Tensor,
     out = torch.empty((n_win, nbe, 3, nw), dtype=torch.int32,
                       device=px.device)
     rc = _sw_lib().sw_gather_accumulate(
-        sw_params(curve, px.device).data_ptr(), px.data_ptr(), py.data_ptr(),
+        sw_params(curve, px.device).data_ptr(), _sw_b3(curve), px.data_ptr(),
+        py.data_ptr(),
         perm.data_ptr(), sign.data_ptr(), starts.data_ptr(),
         counts.data_ptr(), out.data_ptr(), px.shape[0], nbe, n_win * nbe,
         _stream(px))
@@ -493,8 +511,8 @@ def sw_full_add(curve: CurveSpec, acc: torch.Tensor, q: torch.Tensor,
     if not _on_card(acc, q, skip):
         return sw_full_add_plain(curve, acc, q, skip)
     rc = _sw_lib().sw_full_add(sw_params(curve, acc.device).data_ptr(),
-                               acc.data_ptr(), q.data_ptr(), skip.data_ptr(),
-                               skip.numel(), _stream(acc))
+                               _sw_b3(curve), acc.data_ptr(), q.data_ptr(),
+                               skip.data_ptr(), skip.numel(), _stream(acc))
     _launch("sw_full_add", rc)
     return acc
 
@@ -503,3 +521,77 @@ def sw_full_add_plain(curve: CurveSpec, acc: torch.Tensor, q: torch.Tensor,
                       skip: torch.Tensor) -> torch.Tensor:
     s = sw.pack(sw.add(curve, sw.unpack(acc), sw.unpack(q)))
     return acc.copy_(torch.where((skip != 0)[..., None, None], acc, s))
+
+
+# ---------------------------------------------------------------------------
+# sw_running_sum
+# ---------------------------------------------------------------------------
+
+
+def sw_running_sum(curve: CurveSpec, pts: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Both running sums of each lane's chunk: pts (L, S, 3, nw) holds
+    lane l's S points B_0..B_{S-1}; returns (T, U), each (L, 3, nw), with
+    T = sum_j B_j and U = sum_j (j+1) B_j, walked from the top
+    (T = B_{S-1}, U = T; then T += B_j, U += T for j = S-2 .. 0)."""
+    _check("pts", pts, (3, fp.n_words(curve.field)))
+    if pts.dim() != 4 or pts.shape[1] < 1:
+        raise ValueError("pts: expected (L, S >= 1, 3, nw), got "
+                         f"{tuple(pts.shape)}")
+    if not _on_card(pts):
+        return sw_running_sum_plain(curve, pts)
+    lanes, steps = pts.shape[:2]
+    t_out = torch.empty_like(pts[:, 0])
+    u_out = torch.empty_like(t_out)
+    rc = _sw_lib().sw_running_sum(sw_params(curve, pts.device).data_ptr(),
+                                  _sw_b3(curve), pts.data_ptr(),
+                                  t_out.data_ptr(), u_out.data_ptr(), lanes,
+                                  steps, _stream(pts))
+    _launch("sw_running_sum", rc)
+    return t_out, u_out
+
+
+def sw_running_sum_plain(curve: CurveSpec, pts: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    t = sw.unpack(pts[:, -1])
+    u = t
+    for j in range(pts.shape[1] - 2, -1, -1):
+        t = sw.add(curve, t, sw.unpack(pts[:, j]))
+        u = sw.add(curve, u, t)
+    return sw.pack(t), sw.pack(u)
+
+
+# ---------------------------------------------------------------------------
+# sw_combine
+# ---------------------------------------------------------------------------
+
+
+def sw_combine(curve: CurveSpec, window_sums: torch.Tensor, c: int
+               ) -> torch.Tensor:
+    """sum_w 2^(c*w) * W_w per lane, MSB-first: window_sums (S, L, 3, nw)
+    -> (L, 3, nw); c doublings (`sw.dbl_a0`) and one complete add a
+    step."""
+    _check("window_sums", window_sums, (3, fp.n_words(curve.field)))
+    if window_sums.dim() != 4 or window_sums.shape[0] < 1:
+        raise ValueError("window_sums: expected (S >= 1, L, 3, nw), got "
+                         f"{tuple(window_sums.shape)}")
+    if not _on_card(window_sums):
+        return sw_combine_plain(curve, window_sums, c)
+    n_steps, lanes = window_sums.shape[:2]
+    out = torch.empty_like(window_sums[0])
+    rc = _sw_lib().sw_combine(sw_params(curve, out.device).data_ptr(),
+                              _sw_b3(curve), window_sums.data_ptr(),
+                              out.data_ptr(), n_steps, lanes, c,
+                              _stream(out))
+    _launch("sw_combine", rc)
+    return out
+
+
+def sw_combine_plain(curve: CurveSpec, window_sums: torch.Tensor, c: int
+                     ) -> torch.Tensor:
+    acc = sw.unpack(window_sums[-1])
+    for w in range(window_sums.shape[0] - 2, -1, -1):
+        for _ in range(c):
+            acc = sw.dbl_a0(curve, acc)
+        acc = sw.add(curve, acc, sw.unpack(window_sums[w]))
+    return sw.pack(acc)

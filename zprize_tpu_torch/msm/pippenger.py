@@ -41,9 +41,17 @@ keeps the affine planes):
    of `sw_gather_accumulate`, reading the points through the permutation
    (a group with runs far above a full window's mean, such as the narrow
    top windows, is cut into slices of the points first: `window_sums_sw`);
-3. the bit-decomposed bucket merge (`merge_buckets_all`) and the window
-   combine (`combine_windows`), both on `sw_full_add` (a doubling is the
-   complete add of a point to itself).
+3. the bucket merge (`merge_buckets_all`): from 1024 buckets on, a chunked
+   running sum (kernel `sw_running_sum`, one launch for the whole group)
+   and a few `sw_full_add` tree launches; below, the bit-decomposed scan
+   on `sw_full_add`; either way its last fold in one `sw_combine` launch;
+4. the window combine (`combine_windows`): one `sw_combine` launch, one
+   thread a lane folding MSB-first with the dedicated a = 0 doubling.
+
+Steps 3 and 4 are bound by 32-bit integer multiplies.  Measured on an
+H100 for a 2^18 BLS12-381 MSM (PERF.md): the full group's merge 1.0-1.4
+ms, of it the running sum 0.26 ms against a 0.057 ms bound; the final
+combine 2.37 ms, one thread's chain of 2,320 dependent field multiplies.
 
 `msm_jit_static` and `msm_jit_batch` are the reference's fixed-shape SW
 forms (two window groups, an occupancy cap that raises when exceeded);
@@ -63,9 +71,9 @@ from ..curve.spec import CurveSpec
 from ..field import fp
 from ..field.spec import BASE_BITS
 from . import te_path
-from .accum_kernel import (sw_accumulate_ranks, sw_full_add,
-                           sw_gather_accumulate, te_bucket_accumulate,
-                           te_gather_accumulate)
+from .accum_kernel import (sw_accumulate_ranks, sw_combine, sw_full_add,
+                           sw_gather_accumulate, sw_running_sum,
+                           te_bucket_accumulate, te_gather_accumulate)
 
 # the largest window the digit extraction takes: a window spans at most
 # three base-2^15 limbs (18 at BASE_BITS = 15)
@@ -507,15 +515,22 @@ def _sum_rows(curve: CurveSpec, pts: torch.Tensor) -> torch.Tensor:
 
 def merge_buckets_all(curve: CurveSpec, c: int, bucket_sums: torch.Tensor
                       ) -> torch.Tensor:
-    """sum_b b*B_b per window by bit decomposition (the reference's
-    `merge_buckets_pallas`): bucket_sums (W, nbe, 3, nw) -> (W, 3, nw).
+    """sum_b b*B_b per window (the reference's `merge_buckets_pallas`):
+    bucket_sums (W, nbe, 3, nw) -> (W, 3, nw).
 
-    The per-bit sums S_j = sum of the buckets whose id has bit j run as a
-    scan over groups of up to 128 bucket columns: one `sw_full_add` launch
-    a group over (column, bit, window) lanes, a lane skipping the buckets
-    that lack its bit; then a tree over the columns, and the fold
-    sum_j 2^j S_j as a combine with c = 1."""
+    Where `te_path.triangle_split` splits the group (from 1024 buckets
+    on; nbe a power of two, as every window group's is), a chunked
+    running sum (`_merge_running_sum`).  Otherwise the
+    reference's bit decomposition: the per-bit sums S_j = sum of the
+    buckets whose id has bit j run as a scan over groups of up to 128
+    bucket columns, one `sw_full_add` launch a group over (column, bit,
+    window) lanes, a lane skipping the buckets that lack its bit; then a
+    tree over the columns, and the fold sum_j 2^j S_j in one `sw_combine`
+    launch (c = 1)."""
     n_win, nbe = bucket_sums.shape[:2]
+    split = te_path.triangle_split(n_win, nbe)
+    if split is not None and nbe & (nbe - 1) == 0:
+        return _merge_running_sum(curve, bucket_sums, *split)
     tail = bucket_sums.shape[-2:]
     dev = bucket_sums.device
     n_bits = max(1, nbe.bit_length())
@@ -532,21 +547,50 @@ def merge_buckets_all(curve: CurveSpec, c: int, bucket_sums: torch.Tensor
         sk = skip[t][:, :, None].expand(cols, n_bits, n_win)
         sw_full_add(curve, flat, q.reshape(-1, *tail).contiguous(),
                     sk.reshape(-1).contiguous())
-    return combine_windows(curve, 1, _sum_rows(curve, acc))
+    return sw_combine(curve, _sum_rows(curve, acc), 1)
+
+
+def _merge_running_sum(curve: CurveSpec, bucket_sums: torch.Tensor,
+                       n_chunks: int, steps: int) -> torch.Tensor:
+    """sum_b b*B_b per window by the chunked running sum (as
+    `te_path.merge_buckets_te_triangle`): with b = q*S + (j+1),
+
+      sum_b b*B_b = sum_q U_q + S * sum_q q*T_q
+      U_q = sum_j (j+1) B_{qS+j+1},  T_q = sum_j B_{qS+j+1}
+
+    both from one `sw_running_sum` launch over all W*C chunk lanes of S
+    steps.  One `sw_full_add` tree over the C chunks sums the U_q and the
+    per-bit sums S_k = sum of the T_q whose q has bit k, side by side; one
+    `sw_combine` launch (c = 1) then folds U + sum_k 2^(log2 S + k) S_k,
+    identity steps filling the weights between 2^0 and S.  bucket_sums
+    (W, nbe, 3, nw) -> (W, 3, nw)."""
+    n_win = bucket_sums.shape[0]
+    tail = bucket_sums.shape[-2:]
+    dev = bucket_sums.device
+    chunks = bucket_sums.reshape(n_win * n_chunks, steps, *tail).contiguous()
+    t_q, u_q = sw_running_sum(curve, chunks)
+    n_bits = max(1, (n_chunks - 1).bit_length())
+    q = torch.arange(n_chunks, device=dev)
+    has_bit = ((q >> torch.arange(n_bits, device=dev)[:, None]) & 1).bool()
+    ident = sw.pack(sw.identity(curve, (), dev))
+    rows = torch.cat([                                # (C, 1 + n_bits, W)
+        u_q.reshape(n_win, n_chunks, *tail).transpose(0, 1)[:, None],
+        torch.where(has_bit.t()[:, :, None, None, None],
+                    t_q.reshape(n_win, n_chunks, *tail)
+                    .transpose(0, 1)[:, None], ident)], dim=1)
+    sums = _sum_rows(curve, rows.contiguous())        # (1 + n_bits, W)
+    log_s = steps.bit_length() - 1
+    fold = torch.cat([sums[:1], ident.expand(log_s - 1, n_win, *tail),
+                      sums[1:]])
+    return sw_combine(curve, fold.contiguous(), 1)
 
 
 def combine_windows(curve: CurveSpec, c: int, window_sums: torch.Tensor
                     ) -> torch.Tensor:
     """sum_w 2^(c*w) W_w per lane, MSB-first: window_sums (S, L, 3, nw) ->
     (L, 3, nw); c doublings (the complete add of the accumulator to
-    itself) and one add per window, each one `sw_full_add` launch."""
-    acc = window_sums[-1].clone(memory_format=torch.contiguous_format)
-    skip = torch.zeros(acc.shape[0], dtype=torch.int32, device=acc.device)
-    for w in range(window_sums.shape[0] - 2, -1, -1):
-        for _ in range(c):
-            sw_full_add(curve, acc, acc, skip)
-        sw_full_add(curve, acc, window_sums[w].contiguous(), skip)
-    return acc
+    itself) and one add per window, all in one `sw_combine` launch."""
+    return sw_combine(curve, window_sums.contiguous(), c)
 
 
 # `window_sums_sw` cuts a crowded window's points into at most this many

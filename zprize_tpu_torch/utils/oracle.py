@@ -1,6 +1,7 @@
 """Python-int reference for the MSM: affine short-Weierstrass group law,
-the generator chain k·G, and the seeded scalar batches of the benchmark;
-and for the NTT: the direct transform and a recursive radix-2 one.
+the generator chain k·G, the map onto the twisted-Edwards form, and the
+seeded scalar batches of the benchmark; and for the NTT: the direct
+transform and a recursive radix-2 one.
 
 Points are affine int pairs with None as the identity.  When the base
 points are the chain P_i = (i+1)·G, an MSM collapses to one scalar
@@ -14,6 +15,7 @@ import random
 import numpy as np
 import torch
 
+from ..curve import te
 from ..curve.spec import CurveSpec
 
 
@@ -65,6 +67,18 @@ def generator_chain(curve: CurveSpec, n: int) -> list:
         cur = ec_add(cur, g, curve.field.p)
         out.append(cur)
     return out
+
+
+def te_affine_ints(curve: CurveSpec, pt) -> tuple:
+    """An affine SW point (or None) -> its affine TE image (x, y) by the
+    formulas of `te.sw_to_te` (u = s(x - alpha), v = s y, X = ts u / v,
+    Y = (u - 1) / (u + 1)); the identity maps to (0, 1)."""
+    if pt is None:
+        return (0, 1)
+    pr, p = te.te_params(curve), curve.field.p
+    u, v = pr.s * (pt[0] - pr.alpha) % p, pr.s * pt[1] % p
+    return (pr.ts * u * pow(v, -1, p) % p,
+            (u - 1) * pow(u + 1, -1, p) % p)
 
 
 def chain_msm(curve: CurveSpec, scalars) -> tuple | None:
