@@ -13,7 +13,15 @@ In order, each phase raising on failure (so the exit code is non-zero):
    for te_gather_accumulate empty runs, runs of one, identity and
    edge-value rows, negative signs; for te_running_sum chunks of S = 8 and
    16 points with an identity lane, a lane of one point repeated, whose
-   suffix sum doubles, and a lane of edge values);
+   suffix sum doubles, and a lane of edge values); te_combine (folded by
+   groups of 4 threads) at 1, 15 and 33 lanes, c = 1, 5 and 17, 1, 2, 13
+   and 16 steps (an identity lane, an identity on top, edge words); the
+   two latency probes against their plain versions and timed at two chain
+   lengths on one thread, the slope being the latency of one link:
+   imad_chain (2^15 and 2^18 dependent IMADs; 2 of them a mulmod is the
+   card's floor for the serial folds te_combine and sw_combine, their
+   bound) and fq_mul_chain (1024 and 8192 dependent mulmods: the floor of
+   a design that runs each mulmod on one thread, reported beside it);
 3b. holds the Fr NTT kernel against its plain version, bit for bit,
    forward and inverse, at n = 2, 8, 2^9, 2^10, 2^11 and 2^13 with B = 1 and
    3 rows (random inputs holding 0, 1 and p-1), and checks intt(ntt(a)) == a;
@@ -21,9 +29,11 @@ In order, each phase raising on failure (so the exit code is non-zero):
    for bit, forward and inverse (scaled by n^-1), at n = 2, 8, 2^9 (the
    range of the TPU's fused kernel) and 2^10, 2^12 (its stage-grid kernel)
    with B = 1 and 3 columns, and 4096 at 2^12, on random canonical values
-   holding 0, 1, q-1 and 2^32-1; a column pass with the two-level step
-   twiddle; intt(ntt(x)) == x; and the plain version against a python-int
-   DFT at 2^3 and 2^9;
+   holding 0, 1, q-1 and 2^32-1; the transposed store (B, 2^12) at B =
+   1, 3 and 4096; column passes with the two-level step twiddle, in place
+   and transposed (2^3 x (3 x 2^10) in groups of 3, and the 2^24 NTT's
+   2^12 x 2^12); intt(ntt(x)) == x; and the plain version against a
+   python-int DFT at 2^3 and 2^9;
 3d. holds the four short-Weierstrass kernels against their plain
    versions, bit for bit, with BLS12-381's and BLS12-377's constants, at
    4096 and 1000 lanes: sw_gather_accumulate over two windows (empty
@@ -57,7 +67,9 @@ In order, each phase raising on failure (so the exit code is non-zero):
    and its bound and checked against it: te_gather_accumulate over the
    full windows of a 2^26 batch in one launch (and window 0 alone),
    te_running_sum over the triangle merge's chunks of those bucket sums,
-   te_full_add at the merge's widest tree level;
+   te_full_add at the merge's widest tree level, te_combine at the final
+   combine's shape (16 steps, c = 17, one lane; bound: its 555-mulmod
+   critical path times 2 dependent IMADs a mulmod);
 5. profiles one 2^18 MSM (device time by kernel, device idle share);
 6. times each MSM kernel of the 2^18 path that 4b's rows do not cover at
    the shapes the path gives them,
@@ -88,8 +100,10 @@ In order, each phase raising on failure (so the exit code is non-zero):
    a Goldilocks domain of 2^10 (Montgomery words) against python ints;
    the metric, ms per forward NTT over 8 chained dependent transforms, 5
    iterations (CUDA events), and the inverse's; a profiled chain of 8
-   NTTs; gl_ntt's row at its main-path shapes; and the path must have
-   launched gl_ntt and no MSM or Fr kernel.
+   NTTs, which must hold 16 gl_ntt launches and no other kernel (the
+   four-step transpose is in the column pass's store, so no copy runs
+   between the passes); gl_ntt's row at its main-path shapes; and the
+   path must have launched gl_ntt twice an NTT and no MSM or Fr kernel.
 
 9. (run right after 8) drives the short-Weierstrass MSM route: BLS12-381
    G1 at n = 2^18 through `multi_scalar_mult_init` (c = 13: 21 windows,
@@ -154,6 +168,20 @@ GL_CHAIN, GL_ITERS = 8, 5                  # BENCH_NTT_CHAIN, BENCH_ITERS
 # a Goldilocks mulmod (csrc/ntt_gl.cu): one 64x64->128 product, four
 # 32x32->64 wide products at two IMAD slots each
 IMAD_PER_MULMOD_GL = 8
+# te_combine's phase-3 shapes (lanes, c, steps): 1, 15 and 33 lanes (33
+# fills a block of 32 fold groups and one group of the next), c = 1, 5 and
+# 17, 1, 2, 13 and 16 steps
+COMBINE_CASES = ((1, 17, 16), (15, 1, 13), (33, 5, 2), (33, 17, 1),
+                 (15, 5, 16), (1, 1, 2), (33, 1, 13), (1, 5, 1))
+# the probes' chain lengths: the latency of a link is the slope of the
+# launch's time between the two (long enough that the card, not the host,
+# sets the time of both)
+IMAD_K = (1 << 15, 1 << 18)
+MULMOD_K = (1024, 8192)
+# the least dependent IMADs a mulmod takes however many threads split it:
+# the product, then the reduction's multiply by a quotient taken from it
+# (additions, carries and exchanges counted as free)
+MULMOD_IMAD_DEPTH = 2
 PLONK_PROOFS, PLONK_HEIGHT = 16, 8         # bench.py's plonk workload
 PLONK_TIMED = 2
 # the MSM kernels of the collapsed route (the 2^18 MSM and the PLONK
@@ -211,6 +239,20 @@ def bound_ms(mulmods, n_bytes, imad_per_mulmod=IMAD_PER_MULMOD):
     ops = mulmods * imad_per_mulmod / IMAD_PER_S * 1e3
     mem = n_bytes / HBM_BYTES_PER_S * 1e3
     return max(ops, mem), ("operations" if ops >= mem else "bytes")
+
+
+def fold_bound(depth, lat, mulmods, n_bytes):
+    """A serial fold's bound: its critical path (`depth` dependent
+    mulmods) times the card's floor for a mulmod, MULMOD_IMAD_DEPTH
+    dependent IMADs at the latency `lat["imad"]` (ms) that imad_chain
+    measured.  Returns (ms, "latency", extra fields): the depth, the floor
+    of a design that runs each mulmod on one thread (depth times
+    `lat["mulmod"]`, fq_mul_chain's latency) and the throughput bound of
+    its `mulmods` and bytes, far below both at the paths' few lanes."""
+    return depth * MULMOD_IMAD_DEPTH * lat["imad"], "latency", {
+        "depth_mulmods": depth,
+        "design_floor_ms": depth * lat["mulmod"],
+        "throughput_bound_ms": bound_ms(mulmods, n_bytes)[0]}
 
 
 def random_elems(fp, f, shape, rng, dev):
@@ -313,6 +355,99 @@ def check_kernels_random(curve, dev, lanes):
             f"max_abs_err={err}")
         if err != 0:
             raise AssertionError(f"{name} disagrees with its plain version")
+
+
+def check_combine(curve, dev):
+    """Phase 3: te_combine == its plain version at every shape of
+    COMBINE_CASES (random words; an identity lane, an identity on top, a
+    lane of edge words 0, 1 and p-1)."""
+    from zprize_tpu_torch.curve import te
+    from zprize_tpu_torch.field import fp
+    from zprize_tpu_torch.msm import accum_kernel as ak
+    f = curve.field
+    nw = fp.n_words(f)
+    rng = random.Random(SEED + 9)
+    ident = te.pack(te.identity(curve, (), dev))
+    results = {}
+    for lanes, c, steps in COMBINE_CASES:
+        ws = random_elems(fp, f, (steps, lanes, 4), rng, dev)
+        if lanes > 1:
+            ws[:, 1] = ident                       # an identity lane
+        if lanes > 2:
+            ws[-1, 2] = ident                      # identity on top
+        if lanes > 3:
+            for k, v in enumerate((0, 1, f.p - 1)):
+                ws[k % steps, 3] = fp.raw_words(f, v, dev).expand(4, nw)
+        results[f"te_combine lanes={lanes} c={c} steps={steps}"] = \
+            max_abs_err(ak.te_combine(curve, ws, c),
+                        ak.te_combine_plain(curve, ws, c))
+    torch.cuda.synchronize()
+    for name, err in results.items():
+        log(f"kernel vs plain: {name} max_abs_err={err}")
+        if err != 0:
+            raise AssertionError(f"{name} disagrees with its plain version")
+
+
+def chain_row(name, k_pair, run, plain, bound_of):
+    """A probe's row: `run(k)` (one lane's chain of k dependent links)
+    timed at both k of `k_pair`; the latency of a link is the slope
+    between them (the launch's fixed cost drops out).  `run(k_pair[0])`
+    is held against `plain(k_pair[0])`.  Returns (row, latency ms)."""
+    ms = {k: timed(lambda: run(k), 5) for k in k_pair}
+    k1, k2 = k_pair
+    latency = (ms[k2] - ms[k1]) / (k2 - k1)
+    t0 = time.time()
+    ref = plain(k1)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    err = max_abs_err(run(k1), ref)
+    if err != 0:
+        raise AssertionError(f"{name} != plain")
+    b_ms = bound_of(k1, latency)
+    log(f"{name}: {ms} ms for k = {k_pair} dependent links on one thread: "
+        f"{latency * 1e6:.3f} ns a link (plain {plain_ms:.1f} ms at the "
+        f"first k, bound {b_ms:.6f} ms), kernel == plain")
+    return {"name": name, "route": "cuda",
+            "source": "zprize_tpu_torch/csrc/msm_te.cu",
+            "replaces": "none: a measurement probe of the serial folds' "
+                        "latency floors",
+            "launches": None, "max_abs_err": err, "ms": ms[k1],
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": "latency",
+            "library_ms": None, "lanes": 1, "k": k1,
+            "ms_by_k": {str(k): v for k, v in ms.items()},
+            "latency_ns": latency * 1e6}, latency
+
+
+def latency_rows(curve, dev):
+    """Phase 3: the rows of the two probes, imad_chain (bound: its own k
+    IMADs at the latency it measures) and fq_mul_chain (bound: its k
+    mulmods at MULMOD_IMAD_DEPTH IMADs each).  Returns (rows, {"imad":
+    ms, "mulmod": ms}), the latencies of one dependent link."""
+    from zprize_tpu_torch.field import fp
+    from zprize_tpu_torch.msm import probe
+    f = curve.field
+    rng = random.Random(SEED + 10)
+    words = torch.tensor([rng.randrange(-(1 << 31), 1 << 31)
+                          for _ in range(3)], dtype=torch.int32)
+    x, a, b = (w.reshape(1).to(dev) for w in words)
+    k_check = IMAD_K[0] + 37           # the kernel's loop and its remainder
+    imad_row, imad = chain_row(
+        "imad_chain", IMAD_K, lambda k: probe.imad_chain(x, a, b, k),
+        lambda k: probe.imad_chain_plain(x, a, b, k), lambda k, lat: k * lat)
+    err = max_abs_err(probe.imad_chain(x, a, b, k_check),
+                      probe.imad_chain_plain(x, a, b, k_check))
+    if err != 0:
+        raise AssertionError(f"imad_chain != plain at k = {k_check}")
+    fx = random_elems(fp, f, (1, 1), rng, dev)[:, 0].contiguous()
+    fy = random_elems(fp, f, (1, 1), rng, dev)[:, 0].contiguous()
+    mul_row, mulmod = chain_row(
+        "fq_mul_chain", MULMOD_K,
+        lambda k: probe.fq_mul_chain(curve, fx, fy, k),
+        lambda k: probe.fq_mul_chain_plain(curve, fx, fy, k),
+        lambda k, lat: k * MULMOD_IMAD_DEPTH * imad)
+    log(f"a mulmod on one thread takes {mulmod / imad:.1f} dependent IMADs' "
+        f"time; the card's floor is {MULMOD_IMAD_DEPTH}")
+    return [imad_row, mul_row], {"imad": imad, "mulmod": mulmod}
 
 
 def check_sw_kernels(curve, dev, lanes):
@@ -894,6 +1029,10 @@ def profile_call(label, fn, attempts=3):
     ports = {name: sum(ms for ms, _, k in by_kernel
                        if any(s in k for s in symbols))
              for name, symbols in KERNEL_SYMBOLS.items()}
+    # device work of no port kernel (torch ops, copies, memsets)
+    others = sorted({k[:90] for _, _, k in by_kernel
+                     if not any(s in k for symbols in KERNEL_SYMBOLS.values()
+                                for s in symbols)})
     out = {"profile_wall_ms": wall_ms, "attempts": attempt,
            "complete": complete, "launched": launched, "traced": traced,
            "device_busy_ms": busy if by_kernel else "not measured",
@@ -901,6 +1040,7 @@ def profile_call(label, fn, attempts=3):
            else "not measured",
            "port_kernels_ms": ports,
            "torch_ops_ms": busy - sum(ports.values()),
+           "other_kernels": others,
            "by_kernel": [{"name": k[:90], "ms": ms, "calls": n}
                          for ms, n, k in by_kernel[:14]]}
     log(f"profiled {label}: wall {wall_ms:.3f} ms, device busy "
@@ -942,13 +1082,14 @@ def profile_msm(ctx, batch):
                         lambda: api.multi_scalar_mult(ctx, s))
 
 
-def kernel_rows(curve, ctx, aff, batch, launches, dev):
+def kernel_rows(curve, ctx, aff, batch, launches, lat, dev):
     """Phase 5: each kernel at the main path's shapes, timed, beside its
-    plain version and its bound, and checked against the plain version."""
+    plain version and its bound, and checked against the plain version;
+    te_combine's bound is `fold_bound` with the probes' latencies `lat`."""
     from zprize_tpu_torch.curve import te
     from zprize_tpu_torch.field import fp
     from zprize_tpu_torch.msm import accum_kernel as ak
-    from zprize_tpu_torch.msm import pippenger, te_path
+    from zprize_tpu_torch.msm import pippenger, probe, te_path
     f = curve.field
     p = ctx.prepared
     pt_bytes = 4 * 4 * fp.n_words(f)
@@ -956,7 +1097,7 @@ def kernel_rows(curve, ctx, aff, batch, launches, dev):
     rows = []
     ak.reset_launches()
 
-    def row(name, replaces, fn, plain, reps, mulmods, n_bytes):
+    def row(name, replaces, fn, plain, reps, mulmods, n_bytes, depth=None):
         ms = timed(fn, reps)
         t0 = time.time()
         ref = plain()
@@ -965,13 +1106,17 @@ def kernel_rows(curve, ctx, aff, batch, launches, dev):
         err = max_abs_err(fn(), ref)
         if err != 0:
             raise AssertionError(f"{name} != plain at main-path shapes")
-        b_ms, b_by = bound_ms(mulmods, n_bytes)
+        extra = {}
+        if depth is None:
+            b_ms, b_by = bound_ms(mulmods, n_bytes)
+        else:
+            b_ms, b_by, extra = fold_bound(depth, lat, mulmods, n_bytes)
         rows.append({"name": name, "route": "cuda",
                      "source": "zprize_tpu_torch/csrc/msm_te.cu",
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": None})
+                     "library_ms": None, **extra})
         log(f"{name}: {ms:.4f} ms (plain {plain_ms:.1f} ms, bound "
             f"{b_ms:.4f} ms by {b_by}), kernel == plain")
 
@@ -999,21 +1144,21 @@ def kernel_rows(curve, ctx, aff, batch, launches, dev):
 
     c_lanes, _ = te_path.triangle_split(p.g, nbe)
 
-    # te_combine: the merge tail's c=1 fold over the chunk-weight bits.
-    # These are g lanes of a serial fold, so the throughput bound below
-    # (the whole card's multiply rate) is far under what one thread's
-    # dependent chain of mulmods can reach: it does not bind this row.
+    # te_combine: the merge tail's c=1 fold over the chunk-weight bits: g
+    # lanes of a serial fold, bound by the latency of its chain
     n_bits = max(1, (c_lanes - 1).bit_length())
     ws = sums[:n_bits * p.g].reshape(n_bits, p.g, 4, -1).contiguous()
     row("te_combine", "zprize_tpu/msm/accum_kernel.py:997",
         lambda: ak.te_combine(curve, ws, 1),
         lambda: ak.te_combine_plain(curve, ws, 1), 20,
         p.g * (n_bits - 1) * (MULMODS["dbl"] + MULMODS["add"]),
-        (n_bits + 1) * p.g * pt_bytes)
+        (n_bits + 1) * p.g * pt_bytes,
+        depth=probe.te_combine_depth(n_bits, 1))
+    rows[-1].update(lanes=p.g, steps=n_bits, c=1)
     return rows
 
 
-def prize_rows(curve, ctx, batch, launches, dev):
+def prize_rows(curve, ctx, batch, launches, per_msm, lat, dev):
     """The rows of the 2^26 path's kernels at the launches the path makes,
     each timed beside its plain version and its bound and checked against
     the plain version: te_gather_accumulate over the full windows of a
@@ -1021,7 +1166,9 @@ def prize_rows(curve, ctx, batch, launches, dev):
     when the card has room), and window 0 alone for continuity with the
     earlier rows; te_running_sum over the triangle merge's chunks of those
     bucket sums; te_full_add at the merge's widest tree level (the first
-    level of the chunk-weight bit sums).  The plain gather over all the
+    level of the chunk-weight bit sums); te_combine at the final window
+    combine's shape (16 steps at c = 17, one lane; bound: `fold_bound`
+    with the probes' latencies `lat`).  The plain gather over all the
     windows would take many minutes, so it runs on window 0: the launch's
     lanes of window 0 are held against it, and its time is window 0's."""
     from zprize_tpu_torch.field import fp
@@ -1108,19 +1255,60 @@ def prize_rows(curve, ctx, batch, launches, dev):
         lambda: ak.te_full_add(curve, a, b, skip),
         lambda: ak.te_full_add_plain(curve, a, b, skip), lambda o: o, 10,
         lanes * MULMODS["add"], lanes * (3 * pt_bytes + 4), lanes=lanes)
+
+    rows.append(final_combine_row(curve, sums, p.c, launches["te_combine"],
+                                  per_msm["te_combine"], lat))
     return rows
 
 
-def sw_rows(curve, ctx, aff, batch, launches, dev):
+def final_combine_row(curve, sums, c, launches, per_msm, lat):
+    """te_combine at the 2^PRIZE_LOG final combine's shape: num_windows
+    steps at window bits c, one lane (the first of `sums`, bucket sums of
+    the card's run, stand in for the window sums), timed beside its plain
+    version and its bound (`fold_bound` with the probes' latencies
+    `lat`), and checked against the plain version."""
+    from zprize_tpu_torch.field import fp
+    from zprize_tpu_torch.msm import accum_kernel as ak
+    from zprize_tpu_torch.msm import pippenger, probe
+    nw = fp.n_words(curve.field)
+    pt_bytes = 4 * 4 * nw
+    n_steps = pippenger.num_windows(curve, c)
+    ws = sums.reshape(-1, 4, nw)[:n_steps].reshape(
+        n_steps, 1, 4, nw).contiguous()
+    depth = probe.te_combine_depth(n_steps, c)
+    mulmods = (n_steps - 1) * (c * MULMODS["dbl"] + MULMODS["add"])
+    b_ms, b_by, extra = fold_bound(depth, lat, mulmods,
+                                   (n_steps + 1) * pt_bytes)
+    ms = timed(lambda: ak.te_combine(curve, ws, c), 20)
+    t0 = time.time()
+    ref = ak.te_combine_plain(curve, ws, c)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    err = max_abs_err(ak.te_combine(curve, ws, c), ref)
+    if err != 0:
+        raise AssertionError("te_combine != plain at the final combine")
+    log(f"te_combine, the 2^{PRIZE_LOG} final combine ({n_steps} steps, c = "
+        f"{c}, depth {depth}): {ms:.4f} ms (plain {plain_ms:.1f} ms, bound "
+        f"{b_ms:.4f} ms by {b_by}), kernel == plain")
+    return {"name": "te_combine", "route": "cuda",
+            "source": "zprize_tpu_torch/csrc/msm_te.cu",
+            "replaces": "zprize_tpu/msm/accum_kernel.py:997",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "lanes": 1, "steps": n_steps, "c": c,
+            **extra, "launches_per_msm": per_msm}
+
+
+def sw_rows(curve, ctx, aff, batch, launches, lat, dev):
     """The four SW kernels at the 2^18 path's shapes, timed beside their
     plain versions and bounds, and checked against the plain versions:
     sw_gather_accumulate over the full-width window group of one batch,
     sw_running_sum over that group's merge chunks, sw_full_add at the
     merge's widest tree level, sw_combine over the MSM's window sums (one
-    lane)."""
+    lane; bound: `fold_bound` with the probes' latencies `lat`)."""
     from zprize_tpu_torch.field import fp
     from zprize_tpu_torch.msm import accum_kernel as ak
-    from zprize_tpu_torch.msm import pippenger, te_path
+    from zprize_tpu_torch.msm import pippenger, probe, te_path
     p = ctx.prepared
     nw = fp.n_words(curve.field)
     pt_bytes = 3 * 4 * nw
@@ -1132,7 +1320,8 @@ def sw_rows(curve, ctx, aff, batch, launches, dev):
     runs = pippenger.sort_windows(digits[torch.tensor(ws, device=dev)], full)
     out = []
 
-    def row(name, replaces, fn, plain, reps, mulmods, n_bytes, **shape):
+    def row(name, replaces, fn, plain, reps, mulmods, n_bytes, depth=None,
+            **shape):
         ms = timed(fn, reps)
         t0 = time.time()
         ref = plain()
@@ -1143,7 +1332,11 @@ def sw_rows(curve, ctx, aff, batch, launches, dev):
             ref if isinstance(ref, tuple) else (ref,)))
         if err != 0:
             raise AssertionError(f"{name} != plain at the SW path's shapes")
-        b_ms, b_by = bound_ms(mulmods, n_bytes)
+        if depth is None:
+            b_ms, b_by = bound_ms(mulmods, n_bytes)
+        else:
+            b_ms, b_by, extra = fold_bound(depth, lat, mulmods, n_bytes)
+            shape.update(extra)
         out.append({"name": name, "route": "cuda",
                     "source": "zprize_tpu_torch/csrc/msm_sw.cu",
                     "replaces": replaces, "launches": launches[name],
@@ -1198,7 +1391,8 @@ def sw_rows(curve, ctx, aff, batch, launches, dev):
         lambda: ak.sw_combine(curve, window_sums, p.c),
         lambda: ak.sw_combine_plain(curve, window_sums, p.c), 10,
         (n_steps - 1) * (p.c * MULMODS["sw_dbl"] + MULMODS["sw_add"]),
-        window_sums.numel() * 4 + pt_bytes, lanes=1, steps=n_steps,
+        window_sums.numel() * 4 + pt_bytes,
+        depth=probe.sw_combine_depth(n_steps, p.c), lanes=1, steps=n_steps,
         c=p.c)
     return out
 
@@ -1247,9 +1441,10 @@ def gl_random(shape, gen, dev):
 
 def check_gl_ntt(dev):
     """Phase 3c: gl_ntt == its plain version, forward and inverse, at
-    every size of GL_SIZES with B = 1 and 3 (and 4096 at 2^12), a column
-    pass with the step twiddle, the round trip, and the plain version
-    against python ints at 2^3 and 2^9."""
+    every size of GL_SIZES with B = 1 and 3 (and 4096 at 2^12), the
+    transposed store at 2^12 (B = 1, 3, 4096), column passes with the
+    step twiddle (in place and transposed), the round trip, and the plain
+    version against python ints at 2^3 and 2^9."""
     from zprize_tpu_torch.field.spec import GOLDILOCKS
     from zprize_tpu_torch.ntt import gl_kernel, gl_ops
     from zprize_tpu_torch.ntt.domain import primitive_root
@@ -1274,16 +1469,36 @@ def check_gl_ntt(dev):
             f"inverse {errs[1]}, round trip {errs[2]}")
         if any(errs):
             raise AssertionError(f"gl_ntt disagrees at 2^{log_n}, B = {b}")
-    # a column pass of a four-step level: 2^3 points, 3 x 2^10 columns,
-    # the step twiddle from both two-level tables (2^10 > 2^8 columns)
-    x = gl_random((8, 3 << 10), gen, dev)
-    for inverse in (False, True):
-        err = max_abs_err(gl_kernel.gl_ntt(x, 3, inverse, 10, 3),
-                          gl_kernel.gl_ntt_plain(x, 3, inverse, 10, 3))
-        log(f"gl_ntt with the step twiddle, 2^3 x (3 x 2^10), "
-            f"{'inverse' if inverse else 'forward'}: {err}")
-        if err:
-            raise AssertionError("gl_ntt disagrees with the step twiddle")
+    # the transposed store: (B, 2^12) at B = 1, 3 and 4096
+    for b in (1, 3, 4096):
+        x = gl_random((1 << 12, b), gen, dev)
+        errs = [max_abs_err(gl_kernel.gl_ntt(x, 12, inverse,
+                                             transpose_out=True),
+                            gl_kernel.gl_ntt_plain(x, 12, inverse,
+                                                   transpose_out=True))
+                for inverse in (False, True)]
+        log(f"gl_ntt, transposed store, 2^12 x {b}: forward {errs[0]}, "
+            f"inverse {errs[1]}")
+        if any(errs):
+            raise AssertionError(f"gl_ntt's transposed store disagrees at "
+                                 f"B = {b}")
+    # column passes of a four-step level with the step twiddle: 2^3 points,
+    # 3 x 2^10 columns (both two-level tables, 2^10 > 2^8 columns), in
+    # place and with the transposed store in groups of inner = 3; and the
+    # 2^24 NTT's column pass, 2^12 x 2^12, transposed
+    for log_n, step_log, inner in ((3, 10, 3), (12, 12, 1)):
+        x = gl_random((1 << log_n, inner << step_log), gen, dev)
+        for inverse in (False, True):
+            for tr in (False, True):
+                args = (x, log_n, inverse, step_log, inner, None, tr)
+                err = max_abs_err(gl_kernel.gl_ntt(*args),
+                                  gl_kernel.gl_ntt_plain(*args))
+                log(f"gl_ntt with the step twiddle, 2^{log_n} x ({inner} x "
+                    f"2^{step_log}), {'inverse' if inverse else 'forward'}"
+                    f"{', transposed' if tr else ''}: {err}")
+                if err:
+                    raise AssertionError("gl_ntt disagrees with the step "
+                                         "twiddle")
     for log_n in (3, 9):
         x = gl_random((1 << log_n, 1), gen, dev)
         vals = gl_ops.to_ints(x)
@@ -1607,15 +1822,27 @@ def goldilocks_path(dev):
     summary["profile"] = profile_call(
         f"goldilocks 2^{log_n} NTT x {GL_CHAIN} (chained)", fwd_chain)
     summary["profile"]["ntts"] = GL_CHAIN
+    # the four-step transpose is in gl_ntt's store: the chain runs the
+    # kernel twice an NTT and nothing else (no copy between the passes)
+    prof = summary["profile"]
+    if per_ntt != 2 or not prof["complete"] or prof["other_kernels"] or \
+            prof["traced"].get("gl_ntt") != 2 * GL_CHAIN:
+        raise AssertionError(f"the 2^{log_n} NTT chain launched gl_ntt "
+                             f"{per_ntt} times an NTT, traced "
+                             f"{prof['traced']}, other device work "
+                             f"{prof['other_kernels']}")
+    log(f"goldilocks 2^{log_n}: 2 gl_ntt launches an NTT and no other "
+        "kernel in the profiled chain")
     return x, launches, summary
 
 
 def gl_row(x, launches, dev):
     """gl_ntt at the main path's shapes, timed beside its plain version
     and its bound, and checked against the plain version: the column pass
-    of the 2^24 four-step (2^12 x 4096 with the step twiddle) first; under
-    "shapes" the row pass, the inverse's row pass (with n^-1), and 2^9 x
-    32768, a size of the TPU's fused kernel."""
+    of the 2^24 four-step (2^12 x 4096 with the step twiddle and the
+    transposed store) first; under "shapes" the row pass, the inverse's
+    row pass (with n^-1), and 2^9 x 32768, a size of the TPU's fused
+    kernel."""
     from zprize_tpu_torch.ntt import gl_kernel, gl_ops
     q = gl_ops.Q
     shapes = []
@@ -1623,12 +1850,12 @@ def gl_row(x, launches, dev):
     rows = x.view(1 << GL_LOG2, 1 << GL_LOG1)
     small = x.view(1 << 9, -1)
     n_inv = pow(1 << (GL_LOG1 + GL_LOG2), -1, q)
-    for label, v, log_n, inverse, step_log, scale in (
-            ("column pass", cols, GL_LOG1, False, GL_LOG2, None),
-            ("row pass", rows, GL_LOG2, False, 0, None),
-            ("inverse row pass", rows, GL_LOG2, True, 0, n_inv),
-            ("2^9 columns", small, 9, False, 0, None)):
-        args = (v, log_n, inverse, step_log, 1, scale)
+    for label, v, log_n, inverse, step_log, scale, tr in (
+            ("column pass", cols, GL_LOG1, False, GL_LOG2, None, True),
+            ("row pass", rows, GL_LOG2, False, 0, None, False),
+            ("inverse row pass", rows, GL_LOG2, True, 0, n_inv, False),
+            ("2^9 columns", small, 9, False, 0, None, False)):
+        args = (v, log_n, inverse, step_log, 1, scale, tr)
         ms = timed(lambda: gl_kernel.gl_ntt(*args), 20)
         t0 = time.time()
         ref = gl_kernel.gl_ntt_plain(*args)
@@ -1642,6 +1869,7 @@ def gl_row(x, launches, dev):
         b_ms, b_by = bound_ms(mulmods, n_bytes, IMAD_PER_MULMOD_GL)
         shapes.append({"shape": label, "n": 1 << log_n, "batch": v.shape[1],
                        "inverse": inverse, "step_twiddle": bool(step_log),
+                       "transposed_store": tr,
                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                        "bound_ms": b_ms, "bound_by": b_by})
         log(f"gl_ntt {label} 2^{log_n} x {v.shape[1]}: {ms:.4f} ms (plain "
@@ -1665,6 +1893,7 @@ def main():
         return 1
     sys.path.insert(0, ROOT)
     from zprize_tpu_torch.curve.spec import BLS12_377_G1, BLS12_381_G1
+    from zprize_tpu_torch.msm import probe
     from zprize_tpu_torch.plonk import prover
     from zprize_tpu_torch.utils import build
 
@@ -1685,6 +1914,10 @@ def main():
     curve = BLS12_377_G1
     for lanes in (4096, 1000):
         check_kernels_random(curve, dev, lanes)
+    check_combine(curve, dev)
+    probe_rows, lat = latency_rows(curve, dev)
+    # the probes are on no path: count their launches over all of them
+    probe.reset_launches()
     t0 = time.time()
     for sw_curve in (BLS12_381_G1, BLS12_377_G1):
         for lanes in (4096, 1000):
@@ -1703,18 +1936,19 @@ def main():
     sw_ctx, sw_aff, sw_batch, sw_launches, sw_msm = sw_path(dev)
     sw_msm["profile"] = profile_msm(sw_ctx, sw_batch)
     sw_kernel_rows = sw_rows(BLS12_381_G1, sw_ctx, sw_aff, sw_batch,
-                             sw_launches, dev)
+                             sw_launches, lat, dev)
     log(f"phase 9: {time.time() - t0:.1f} s")
     del sw_ctx, sw_aff
     torch.cuda.empty_cache()
     ctx, aff, batch, launches, summary = main_path(curve, dev)
     summary["profile"] = profile_msm(ctx, batch)
-    kernels = kernel_rows(curve, ctx, aff, batch, launches, dev)
+    kernels = kernel_rows(curve, ctx, aff, batch, launches, lat, dev)
     del ctx, aff
     torch.cuda.empty_cache()
     ctx, batch, launches, prize = prize_path(curve, dev)
     prize["profile"] = profile_msm(ctx, batch)
-    kernels.extend(prize_rows(curve, ctx, batch, launches, dev))
+    kernels.extend(prize_rows(curve, ctx, batch, launches,
+                              prize["launches_per_msm"], lat, dev))
     del ctx, batch
     torch.cuda.empty_cache()
     pk, wires, public, plonk_launches, plonk = plonk_path(dev)
@@ -1723,6 +1957,12 @@ def main():
     kernels.append(ntt_row(pk, plonk_launches, dev))
     kernels.append(gl_kernel_row)
     kernels.extend(sw_kernel_rows)
+    for row in probe_rows:
+        row["launches"] = probe.launches[row["name"]]
+        if row["launches"]:
+            raise AssertionError(f"{row['name']}, a probe, was launched on "
+                                 "a path")
+    kernels.extend(probe_rows)
     print(json.dumps(summary), flush=True)
     print(json.dumps(prize), flush=True)
     print(json.dumps(plonk), flush=True)

@@ -288,3 +288,37 @@ def test_wrapper_checks_its_input():
     with pytest.raises(ValueError, match="domain tables"):
         radix2.ntt(Domain(GL, 3, "cpu"),
                    torch.empty((8, 2), dtype=torch.int32, device="meta"))
+
+
+@pytest.mark.parametrize("log_n, step_log, inner, b", [
+    (3, 0, 1, 5), (3, 2, 3, 12), (12, 3, 1, 8)],
+    ids=["2^3 x 5", "2^3 x (3 x 2^2) step twiddle", "2^12 x 2^3 step twiddle"])
+def test_transposed_store_is_the_transpose(log_n, step_log, inner, b):
+    """gl_ntt(..., transpose_out=True) holds the in-place result's columns
+    as rows, in groups of `inner`: (B // inner, n * inner), element (k,
+    col) at [col // inner, k * inner + col % inner]."""
+    n = 1 << log_n
+    rng = random.Random(12 + log_n)
+    x = gl_ops.from_ints([[rng.randrange(Q) for _ in range(b)]
+                          for _ in range(n)])
+    for inverse in (False, True):
+        y = gl_kernel.gl_ntt(x, log_n, inverse, step_log, inner).numpy()
+        t = gl_kernel.gl_ntt(x, log_n, inverse, step_log, inner,
+                             transpose_out=True)
+        assert t.shape == (b // inner, n * inner) and t.is_contiguous()
+        t = t.numpy()
+        for col in range(b):
+            assert np.array_equal(t[col // inner, col % inner::inner],
+                                  y[:, col])
+
+
+def test_wrapper_refuses_bad_transposed_shapes():
+    x = torch.zeros((8, 6), dtype=torch.int64)
+    with pytest.raises(ValueError, match="transpose_out"):
+        gl_kernel.gl_ntt(x, 3, inner=4, transpose_out=True)
+    with pytest.raises(ValueError, match="transpose_out"):
+        gl_kernel.gl_ntt(x, 3, inner=0, transpose_out=True)
+    with pytest.raises(ValueError, match="columns"):
+        gl_kernel.gl_ntt(x, 3, step_log=1, inner=4, transpose_out=True)
+    assert gl_kernel.gl_ntt(x, 3, inner=3, transpose_out=True).shape == (
+        2, 24)

@@ -22,6 +22,7 @@ from zprize_tpu_torch.curve import te
 from zprize_tpu_torch.curve.spec import BLS12_377_G1 as CURVE
 from zprize_tpu_torch.field import fp
 from zprize_tpu_torch.msm import accum_kernel as ak
+from zprize_tpu_torch.msm import probe
 from zprize_tpu_torch.msm import te_path
 from zprize_tpu_torch.utils import oracle
 from torch_memory import release_memory  # noqa: F401
@@ -356,3 +357,57 @@ def test_wrappers_take_plain_route_on_cpu_and_check_inputs(te_affine):
         ak.te_full_add(CURVE, pts, pts, skip[:3])
     with pytest.raises(ValueError):
         ak.te_dbl_chain(CURVE, pts.to("meta"), 1)
+
+
+@pytest.mark.parametrize("fold, n_steps, c, depth", [
+    (probe.te_combine_depth, 16, 17, 555),    # the 2^26 final combine
+    (probe.te_combine_depth, 13, 1, 60),      # a merge tail's fold
+    (probe.te_combine_depth, 1, 17, 0),
+    (probe.sw_combine_depth, 21, 13, 560)],   # BLS12-381 2^18, c = 13
+    ids=["te 16 x c17", "te 13 x c1", "te 1 step", "sw 21 x c13"])
+def test_fold_depth_counts_the_critical_path(fold, n_steps, c, depth):
+    assert fold(n_steps, c) == depth
+
+
+def test_mul_chain_matches_ints_and_checks_input():
+    """fq_mul_chain: x * y^k per lane (Montgomery words), plain on CPU."""
+    f = CURVE.field
+    rng = np.random.default_rng(3)
+    xs = [int(rng.integers(1 << 62)) * 7919 % f.p for _ in range(3)] + [0]
+    ys = [int(rng.integers(1 << 62)) ** 5 % f.p for _ in range(3)] + [1]
+    x, y = fp.from_ints(f, xs), fp.from_ints(f, ys)
+    probe.reset_launches()
+    out = probe.fq_mul_chain(CURVE, x, y, 5)
+    assert list(fp.to_ints(f, out)) == [a * pow(b, 5, f.p) % f.p
+                                        for a, b in zip(xs, ys)]
+    assert torch.equal(probe.fq_mul_chain(CURVE, x, y, 0), x)
+    assert set(probe.launches.values()) == {0}          # no kernel on CPU
+    with pytest.raises(ValueError):
+        probe.fq_mul_chain(CURVE, x, y[:2], 1)
+    with pytest.raises(ValueError):
+        probe.fq_mul_chain(CURVE, x, y, -1)
+
+
+def test_imad_chain_matches_ints_and_checks_input():
+    """imad_chain: k times v = v a + b mod 2^32 per lane, plain on CPU."""
+    rng = np.random.default_rng(4)
+    words = [[int(w) for w in rng.integers(0, 1 << 32, 5)] for _ in range(3)]
+    words[0][0], words[1][0], words[2][0] = (1 << 32) - 1, (1 << 32) - 1, 7
+    x, a, b = (torch.tensor(w, dtype=torch.int64).to(torch.int32)
+               for w in words)
+    probe.reset_launches()
+    out = probe.imad_chain(x, a, b, 70)
+    want = []
+    for v, m, d in zip(*words):
+        for _ in range(70):
+            v = (v * m + d) % (1 << 32)
+        want.append(v)
+    assert [w % (1 << 32) for w in out.tolist()] == want
+    assert torch.equal(probe.imad_chain(x, a, b, 0), x)
+    assert set(probe.launches.values()) == {0}          # no kernel on CPU
+    with pytest.raises(ValueError):
+        probe.imad_chain(x, a[:2], b, 1)
+    with pytest.raises(ValueError):
+        probe.imad_chain(x, a, b, -1)
+    with pytest.raises(TypeError):
+        probe.imad_chain(x.to(torch.int64), a, b, 1)

@@ -1,10 +1,12 @@
 // Twisted-Edwards (a = -1, extended coordinates) MSM kernels for Hopper.
 //
-// Six kernels, each with a plain C launcher that ctypes binds
-// (zprize_tpu_torch/msm/accum_kernel.py holds the wrappers and the plain
-// PyTorch version of each).  A launcher takes device pointers, sizes and
-// the stream, allocates nothing, launches on that stream without
-// synchronising, and returns cudaGetLastError().
+// Six kernels and two measurement probes (k_mul_chain, k_imad_chain),
+// each with a plain C launcher that ctypes binds
+// (zprize_tpu_torch/msm/accum_kernel.py holds the kernels' wrappers and
+// plain PyTorch versions, zprize_tpu_torch/msm/probe.py the probes').  A
+// launcher takes device pointers, sizes and the stream, allocates
+// nothing, launches on that stream without synchronising, and returns
+// cudaGetLastError().
 //
 // Layouts (int32 words, contiguous, row-major):
 //   point    (..., 4, 12): X, Y, Z, T in Montgomery form (csrc/fq.cuh)
@@ -15,8 +17,10 @@
 // (add_mixed, add, dbl): keep them in lockstep, since kernel and plain
 // version must agree bit for bit.
 //
-// What bounds all six on an H100: 32-bit integer multiplies.  One field
-// multiplication (mulmod) is 588 IMADs on the carry chains of csrc/fq.cuh;
+// What bounds five of the six on an H100: 32-bit integer multiplies
+// (k_combine, a serial fold, is bound by the latency of its chain).  One
+// field multiplication (mulmod) is 588 IMADs on the carry chains of
+// csrc/fq.cuh;
 // the kernels read and write a few hundred bytes per thousands of
 // multiplies, so memory is far from the limit.  A mixed add costs 7
 // mulmods, a full add 9 and a doubling 8.  The design answer is one
@@ -317,26 +321,193 @@ __global__ void __launch_bounds__(BLOCK, RUNNING_SUM_MIN_BLOCKS)
 }
 
 // te_combine: replaces make_te_combine (zprize_tpu/msm/accum_kernel.py),
-// used for the final window combine and the merge-tail folds.  Bound:
-// (n_steps - 1) * (8c + 9) mulmods per lane, sequential in the lane.
-// Design: one thread per lane folds MSB-first (c doublings, then one full
-// add per step) with the accumulator in registers; any number of lanes.
+// used for the final window combine and the merge-tail folds.  Lane i of
+// ws (n_steps, lanes, 4, 12) folds MSB-first: acc = W_{n_steps-1}, then
+// for w = n_steps-2 .. 0, c doublings and one full add of W_w.
+//
+// What bounds it: latency, not throughput.  The fold is (n_steps - 1)
+// (8c + 9) mulmods, but a final combine has one lane, so the card's
+// multiply rate is beside the point: what counts is the chain of
+// dependent mulmods.  Within a doubling the 4 squarings are independent,
+// then the 4 products; within a full add a, b, zz and T1 T2 are
+// independent, then c = T1 T2 k, then the 4 products.  The critical path
+// is 2 mulmods a doubling and 3 a full add, (n_steps - 1)(2c + 3) in all
+// (555 for the 2^26 final combine, 16 steps at c = 17, where one thread
+// runs 2,175).  The card's floor is that depth times 2 dependent IMADs a
+// mulmod (k_imad_chain below measures one), whatever splits the mulmod;
+// a design that runs each mulmod on one thread has a higher floor, the
+// depth times one such mulmod's latency (k_mul_chain).
+//
+// Design: a group of GROUP = 4 threads of one warp folds one lane.
+// Thread g holds coordinate g of the accumulator (X, Y, Z, T) and runs
+// one of each step's 4 independent products; the group trades its 12-word
+// operands through its slots in shared memory (one slot a thread, words
+// strided by the block so that a warp's stores hit distinct banks) with
+// __syncwarp on the group's mask between a write and the reads.  The
+// field additions between the products are run by every thread of the
+// group on the same operands, each keeping what its next product needs.
+// The second operand of each full add (Y2 - X2, Y2 + X2, Z2 or T2) is
+// read before the step's doublings, off the chain.  The op sequence on
+// the values is that of te.dbl and te.add, and every value is fully
+// reduced, so the words equal te_combine_plain's.  32 lanes a block of
+// 128 threads; any number of lanes (a lane count that is not a multiple
+// of 32 leaves whole groups idle in the last block).  ptxas: 113
+// registers, no stack.  Measured on an H100 (PERF.md): the 2^26 final
+// combine 0.63 ms (one thread took 2.05), 1.15 times the one-thread
+// mulmod floor of 0.55 ms; a 13-step c = 1 fold 0.075 ms, 1.26 times its
+// 0.059.  The card's floor is hundreds of times lower (PERF.md): a
+// product split across threads is the lever left.
+constexpr int GROUP = 4;
+
+// Thread g of a fold group publishes x in its slot (after the group has
+// read the previous values) and waits for the group's other slots.
+__device__ __forceinline__ void publish(uint32_t* slots, const Fq& x,
+                                        unsigned mask) {
+  __syncwarp(mask);
+#pragma unroll
+  for (int j = 0; j < NW; ++j) slots[j * BLOCK + threadIdx.x] = x.v[j];
+  __syncwarp(mask);
+}
+
+// the value that thread j of the caller's group published
+__device__ __forceinline__ Fq peer(const uint32_t* slots, int j) {
+  const int t = (threadIdx.x & ~(GROUP - 1)) + j;
+  Fq r;
+#pragma unroll
+  for (int w = 0; w < NW; ++w) r.v[w] = slots[w * BLOCK + t];
+  return r;
+}
+
+// The closing products of dbl and finish, X3 = E F, Y3 = G H, Z3 = F G,
+// T3 = E H: thread g computes coordinate g.
+__device__ __forceinline__ Fq closing_product(int g, const Fq& e, const Fq& f,
+                                              const Fq& gg, const Fq& h,
+                                              const Params& P) {
+  const Fq l = fq::select(g == 1, gg, fq::select(g == 2, f, e));
+  const Fq r = fq::select(g == 0, f, fq::select(g == 2, gg, h));
+  return fq::mul(l, r, P);
+}
+
+// dbl on a fold group: v is coordinate g of the point, and so is the
+// result.
+__device__ __forceinline__ Fq group_dbl(const Fq& v, int g, uint32_t* slots,
+                                        unsigned mask, const Params& P) {
+  publish(slots, v, mask);
+  const Fq xy = fq::add(peer(slots, 0), peer(slots, 1), P);
+  // X^2, Y^2, Z^2, (X + Y)^2
+  publish(slots, fq::sqr(fq::select(g == 3, xy, v), P), mask);
+  const Fq a = peer(slots, 0), b = peer(slots, 1);
+  const Fq ab = fq::add(a, b, P);
+  const Fq e = fq::sub(peer(slots, 3), ab, P);
+  const Fq gg = fq::sub(b, a, P);
+  const Fq zz = peer(slots, 2);
+  const Fq f = fq::sub(gg, fq::add(zz, zz, P), P);
+  return closing_product(g, e, f, gg, fq::neg(ab, P), P);
+}
+
+// full_add on a fold group: v is coordinate g of the accumulator, q2
+// thread g's operand of the second point (Y2 - X2, Y2 + X2, Z2, T2).
+__device__ __forceinline__ Fq group_add(const Fq& v, const Fq& q2, int g,
+                                        uint32_t* slots, unsigned mask,
+                                        const Params& P) {
+  publish(slots, v, mask);
+  const Fq x = peer(slots, 0), y = peer(slots, 1);
+  const Fq l = fq::select(g == 0, fq::sub(y, x, P),
+                          fq::select(g == 1, fq::add(y, x, P), v));
+  Fq m = fq::mul(l, q2, P);                 // a, b, Z1 Z2, T1 T2
+  if (g == 3) m = fq::mul(m, fq::load<NW>(P.k), P);
+  publish(slots, m, mask);
+  const Fq a = peer(slots, 0), b = peer(slots, 1);
+  const Fq zz = peer(slots, 2), c = peer(slots, 3);
+  const Fq d = fq::add(zz, zz, P);
+  return closing_product(g, fq::sub(b, a, P), fq::sub(d, c, P),
+                         fq::add(d, c, P), fq::add(b, a, P), P);
+}
+
+// thread g's operand of the point at src (4 coordinates of NW words)
+__device__ __forceinline__ Fq add_operand(const uint32_t* src, int g,
+                                          const Params& P) {
+  const Fq x = fq::load<NW>(src), y = fq::load<NW>(src + NW);
+  return fq::select(g == 0, fq::sub(y, x, P),
+                    fq::select(g == 1, fq::add(y, x, P),
+                               fq::load<NW>(src + g * NW)));
+}
+
 __global__ void __launch_bounds__(BLOCK)
     k_combine(const uint32_t* params, const uint32_t* ws, uint32_t* out,
               int n_steps, long long lanes, int c) {
   __shared__ Params P;
+  __shared__ uint32_t slots[NW * BLOCK];
   fq::load_params(P, params);
-  long long i = (long long)blockIdx.x * BLOCK + threadIdx.x;
-  if (i >= lanes) return;
-  Pt acc = load_pt(ws + ((long long)(n_steps - 1) * lanes + i) * PT_WORDS);
+  const long long i = ((long long)blockIdx.x * BLOCK + threadIdx.x) / GROUP;
+  if (i >= lanes) return;                   // whole groups leave together
+  const int g = threadIdx.x & (GROUP - 1);
+  const unsigned mask = ((1u << GROUP) - 1)
+                        << (threadIdx.x & 31 & ~(GROUP - 1));
+  Fq v = fq::load<NW>(ws + ((long long)(n_steps - 1) * lanes + i) * PT_WORDS +
+                      g * NW);
 #pragma unroll 1
   for (int w = n_steps - 2; w >= 0; --w) {
+    const Fq q2 =
+        add_operand(ws + ((long long)w * lanes + i) * PT_WORDS, g, P);
 #pragma unroll 1
-    for (int k = 0; k < c; ++k) acc = dbl(acc, P);
-    acc = full_add(acc, load_pt(ws + ((long long)w * lanes + i) * PT_WORDS),
-                   P);
+    for (int k = 0; k < c; ++k) v = group_dbl(v, g, slots, mask, P);
+    v = group_add(v, q2, g, slots, mask, P);
   }
-  store_pt(out + i * PT_WORDS, acc);
+  fq::store(out + i * PT_WORDS + g * NW, v);
+}
+
+// fq_mul_chain: replaces no TPU kernel.  A measurement probe: lane i
+// multiplies x_i by y_i k times in a row (Montgomery products, so out_i =
+// x_i y_i^k R^-k), each product waiting for the one before, so its time
+// over k is the latency of one dependent 12-word mulmod on one thread:
+// times a serial fold's depth (te_combine above, sw_combine of
+// csrc/msm_sw.cu), the floor of a design that runs each mulmod on one
+// thread.  Bound: its k mulmods at 2 dependent IMADs each (k_imad_chain);
+// the lanes are independent, so many lanes would measure throughput
+// instead.
+__global__ void __launch_bounds__(BLOCK)
+    k_mul_chain(const uint32_t* params, const uint32_t* x, const uint32_t* y,
+                uint32_t* out, long long lanes, int k) {
+  __shared__ Params P;
+  fq::load_params(P, params);
+  const long long i = (long long)blockIdx.x * BLOCK + threadIdx.x;
+  if (i >= lanes) return;
+  Fq a = fq::load<NW>(x + i * NW);
+  const Fq b = fq::load<NW>(y + i * NW);
+#pragma unroll 1
+  for (int j = 0; j < k; ++j) a = fq::mul(a, b, P);
+  fq::store(out + i * NW, a);
+}
+
+// imad_chain: replaces no TPU kernel.  A measurement probe: lane i sets
+// v = x_i, then k times v = v a_i + b_i (mod 2^32), one mad.lo.u32 (one
+// IMAD) that waits for the one before, so its time over k is the latency
+// of one dependent IMAD on this card.  However many threads split a
+// mulmod, it needs two such multiplies one after the other: the product,
+// then the reduction's multiply by a quotient taken from it; so depth x 2
+// x this latency is a floor for the serial folds that no design can beat.
+// Bound: that latency (what it measures).
+constexpr int IMAD_UNROLL = 64;
+
+__global__ void __launch_bounds__(BLOCK)
+    k_imad_chain(const uint32_t* x, const uint32_t* a, const uint32_t* b,
+                 uint32_t* out, long long lanes, int k) {
+  const long long i = (long long)blockIdx.x * BLOCK + threadIdx.x;
+  if (i >= lanes) return;
+  uint32_t v = x[i];
+  const uint32_t m = a[i], d = b[i];
+  int j = 0;
+#pragma unroll 1
+  for (; j + IMAD_UNROLL <= k; j += IMAD_UNROLL) {
+#pragma unroll
+    for (int u = 0; u < IMAD_UNROLL; ++u)
+      asm volatile("mad.lo.u32 %0, %0, %1, %2;" : "+r"(v) : "r"(m), "r"(d));
+  }
+#pragma unroll 1
+  for (; j < k; ++j)
+    asm volatile("mad.lo.u32 %0, %0, %1, %2;" : "+r"(v) : "r"(m), "r"(d));
+  out[i] = v;
 }
 
 unsigned grid_for(long long n) { return (unsigned)((n + BLOCK - 1) / BLOCK); }
@@ -398,9 +569,27 @@ int te_running_sum(const void* params, const void* pts, void* t_out,
 int te_combine(const void* params, const void* ws, void* out, int n_steps,
                long long lanes, int c, void* stream) {
   if (lanes <= 0) return 0;
-  k_combine<<<grid_for(lanes), BLOCK, 0, (cudaStream_t)stream>>>(
+  k_combine<<<grid_for(lanes * GROUP), BLOCK, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)params, (const uint32_t*)ws, (uint32_t*)out, n_steps,
       lanes, c);
+  return (int)cudaGetLastError();
+}
+
+int fq_mul_chain(const void* params, const void* x, const void* y, void* out,
+                 long long lanes, int k, void* stream) {
+  if (lanes <= 0) return 0;
+  k_mul_chain<<<grid_for(lanes), BLOCK, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)params, (const uint32_t*)x, (const uint32_t*)y,
+      (uint32_t*)out, lanes, k);
+  return (int)cudaGetLastError();
+}
+
+int imad_chain(const void* x, const void* a, const void* b, void* out,
+               long long lanes, int k, void* stream) {
+  if (lanes <= 0) return 0;
+  k_imad_chain<<<grid_for(lanes), BLOCK, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)x, (const uint32_t*)a, (const uint32_t*)b,
+      (uint32_t*)out, lanes, k);
   return (int)cudaGetLastError();
 }
 

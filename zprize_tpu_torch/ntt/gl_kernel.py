@@ -11,7 +11,8 @@ natural order: A[k] = sum_j a_j w^(jk), the inverse scaled by n^-1.
   to ``launches["gl_ntt"]`` per launch, and raises if the launch failed; on
   CPU tensors it runs `gl_ntt_plain`, the radix-2 DIT stage loop on
   ``gl_ops``.  Options that the four-step composition fuses into the
-  store: the step twiddle of a column pass and a final scale.
+  store: the step twiddle of a column pass, a final scale, and the
+  transposed store (`transpose_out`) that hands the row pass its input.
 * `ntt_packed(log_n, x, inverse)`: any size, splitting four-step above the
   tile (`_ntt_axis0`, output index k1 + n1 k2 as in the reference).
 * `ntt_fourstep_packed(log_n1, log_n2, x)`: bench.py's entry point, the
@@ -19,8 +20,8 @@ natural order: A[k] = sum_j a_j w^(jk), the inverse scaled by n^-1.
 
 Replaces the TPU kernels `_make_ntt_call` (2^k <= 2^9, all stages in one
 grid step) and `_make_ntt_grid_call` (2^10..2^12, one stage per grid step)
-of zprize_tpu/ntt/gl_kernel.py with one kernel: a 2^12-point column fits in
-a block's shared memory, so the TPU's split at 2^9 is not needed.
+of zprize_tpu/ntt/gl_kernel.py with one kernel (radix-16 passes in
+registers, ``csrc/ntt_gl.cu``), so the TPU's split at 2^9 is not needed.
 """
 
 from __future__ import annotations
@@ -59,7 +60,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("ntt_gl")
     vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.gl_ntt.argtypes = [vp, vp, vp, vp, vp, ci, ci, ll,
-                           ctypes.c_ulonglong, ll, ci, vp]
+                           ctypes.c_ulonglong, ll, ci, ci, vp]
     lib.gl_ntt.restype = ci
     lib.ntt_gl_error_string.argtypes = [ci]
     lib.ntt_gl_error_string.restype = ctypes.c_char_p
@@ -106,7 +107,8 @@ def _step_tables(log_n1: int, log_n2: int, inverse: bool,
     return _step_cache[key]
 
 
-def _check(x: torch.Tensor, log_n: int, step_log: int, inner: int) -> None:
+def _check(x: torch.Tensor, log_n: int, step_log: int, inner: int,
+           transpose_out: bool) -> None:
     if x.dtype != torch.int64:
         raise TypeError(f"x: expected torch.int64, got {x.dtype}")
     if not 0 <= log_n <= TILE_LOG:
@@ -120,21 +122,30 @@ def _check(x: torch.Tensor, log_n: int, step_log: int, inner: int) -> None:
     if step_log and (inner < 1 or x.shape[1] != inner << step_log):
         raise ValueError(f"x: {x.shape[1]} columns are not {inner} x "
                          f"2^{step_log}")
+    if transpose_out and (inner < 1 or x.shape[1] % inner):
+        raise ValueError(f"transpose_out: {x.shape[1]} columns are not "
+                         f"groups of inner = {inner}")
 
 
 def gl_ntt(x: torch.Tensor, log_n: int, inverse: bool = False,
-           step_log: int = 0, inner: int = 1, scale: int | None = None
-           ) -> torch.Tensor:
+           step_log: int = 0, inner: int = 1, scale: int | None = None,
+           transpose_out: bool = False) -> torch.Tensor:
     """The NTT of every column of x (2^log_n, B), log_n <= TILE_LOG, then,
     if step_log > 0, element (k1, col) times w^(k1 j2), w the
     2^(log_n + step_log)-th root (w^-1 for the inverse), j2 = col // inner
-    (the column pass of a four-step transform), then times `scale`."""
-    _check(x, log_n, step_log, inner)
+    (the column pass of a four-step transform), then times `scale`.
+    Returned as (2^log_n, B), or with `transpose_out` as (B // inner,
+    2^log_n * inner), element (k1, col) at [j2, k1 * inner + col % inner]:
+    the transpose (B, 2^log_n) when inner is 1."""
+    _check(x, log_n, step_log, inner, transpose_out)
     if x.device.type == "cpu":
-        return gl_ntt_plain(x, log_n, inverse, step_log, inner, scale)
+        return gl_ntt_plain(x, log_n, inverse, step_log, inner, scale,
+                            transpose_out)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    out = torch.empty_like(x)
+    n, b = x.shape
+    out = torch.empty((b // inner, n * inner) if transpose_out else (n, b),
+                      dtype=x.dtype, device=x.device)
     pows = gl_powers(log_n, inverse, x.device)
     tw_a = tw_b = None
     split = 0
@@ -144,7 +155,7 @@ def gl_ntt(x: torch.Tensor, log_n: int, inverse: bool = False,
                        None if tw_a is None else tw_a.data_ptr(),
                        None if tw_b is None else tw_b.data_ptr(),
                        step_log, split, inner, 0 if scale is None else scale,
-                       x.shape[1], log_n,
+                       b, log_n, int(transpose_out),
                        torch.cuda.current_stream(x.device).cuda_stream)
     launches["gl_ntt"] += 1
     if rc != 0:
@@ -154,12 +165,12 @@ def gl_ntt(x: torch.Tensor, log_n: int, inverse: bool = False,
 
 
 def gl_ntt_plain(x: torch.Tensor, log_n: int, inverse: bool = False,
-                 step_log: int = 0, inner: int = 1, scale: int | None = None
-                 ) -> torch.Tensor:
+                 step_log: int = 0, inner: int = 1, scale: int | None = None,
+                 transpose_out: bool = False) -> torch.Tensor:
     """`gl_ntt` on ``gl_ops``, at any log_n: bit-reverse, then per stage s
     (m = 2^s) the butterflies (lo + w^j hi, lo - w^j hi) with
     w^j = pows[j * n/m] (stage 1 multiplies by nothing), then the step
-    twiddle and the scale."""
+    twiddle, the scale and the transposed layout."""
     n, b = x.shape
     pows = gl_powers(log_n, inverse, x.device)
     y = x.index_select(0, bitrev_perm(log_n, x.device))
@@ -173,7 +184,15 @@ def gl_ntt_plain(x: torch.Tensor, log_n: int, inverse: bool = False,
         y = _step_twiddle(y, log_n, step_log, inverse, inner)
     if scale is not None:
         y = G.gl_mul(y, G.const(scale, x.device))
-    return y
+    return _transposed(y, inner) if transpose_out else y
+
+
+def _transposed(y: torch.Tensor, inner: int) -> torch.Tensor:
+    """y (n, B) as (B // inner, n * inner): element (k, col) at
+    [col // inner, k * inner + col % inner] (a torch copy)."""
+    n, b = y.shape
+    return y.reshape(n, b // inner, inner).transpose(0, 1).contiguous(
+        ).reshape(b // inner, n * inner)
 
 
 def _step_twiddle(y: torch.Tensor, log_n: int, step_log: int,
@@ -193,18 +212,20 @@ def _step_twiddle(y: torch.Tensor, log_n: int, step_log: int,
 def _fourstep(log_n1: int, log_n2: int, x: torch.Tensor, inverse: bool,
               tile_log: int, scale: int | None) -> torch.Tensor:
     """NTT over axis 0 of x (n1 n2, B): the column pass with the step
-    twiddle (fused into the store up to the tile; above it the recursive
-    `_ntt_axis0`, then `_step_twiddle`), a transpose (a torch copy), then
-    the row pass, which takes the scale; the output index is k1 + n1 k2."""
+    twiddle and the transpose to (n2, n1 B) (both fused into its store up
+    to the tile; above it the recursive `_ntt_axis0`, then `_step_twiddle`
+    and a torch copy), then the row pass, which takes the scale; the
+    output index is k1 + n1 k2."""
     n1, n2 = 1 << log_n1, 1 << log_n2
     b = x.shape[1]
     cols = x.reshape(n1, n2 * b)
     if log_n1 <= tile_log:
-        c = gl_ntt(cols, log_n1, inverse, step_log=log_n2, inner=b)
+        r = gl_ntt(cols, log_n1, inverse, step_log=log_n2, inner=b,
+                   transpose_out=True)
     else:
-        c = _step_twiddle(_ntt_axis0(log_n1, cols, inverse, tile_log, None),
-                          log_n1, log_n2, inverse, b)
-    r = c.reshape(n1, n2, b).transpose(0, 1).contiguous().reshape(n2, n1 * b)
+        r = _transposed(_step_twiddle(
+            _ntt_axis0(log_n1, cols, inverse, tile_log, None), log_n1,
+            log_n2, inverse, b), b)
     return _ntt_axis0(log_n2, r, inverse, tile_log, scale).reshape(n1 * n2, b)
 
 
