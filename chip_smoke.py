@@ -15,7 +15,10 @@ In order, each phase raising on failure (so the exit code is non-zero):
    16 points with an identity lane, a lane of one point repeated, whose
    suffix sum doubles, and a lane of edge values); te_combine (folded by
    groups of 4 threads) at 1, 15 and 33 lanes, c = 1, 5 and 17, 1, 2, 13
-   and 16 steps (an identity lane, an identity on top, edge words); the
+   and 16 steps (an identity lane, an identity on top, edge words);
+   te_tree_sum at the shapes of TREE_CASES (one member, one segment of 64,
+   several segments and a ragged one, roots only and bit sums at first = 0
+   and 1; identity members and edge words), the root and every bit sum; the
    two latency probes against their plain versions and timed at two chain
    lengths on one thread, the slope being the latency of one link:
    imad_chain (2^15 and 2^18 dependent IMADs; 2 of them a mulmod is the
@@ -23,8 +26,11 @@ In order, each phase raising on failure (so the exit code is non-zero):
    bound) and fq_mul_chain (1024 and 8192 dependent mulmods: the floor of
    a design that runs each mulmod on one thread, reported beside it);
 3b. holds the Fr NTT kernel against its plain version, bit for bit,
-   forward and inverse, at n = 2, 8, 2^9, 2^10, 2^11 and 2^13 with B = 1 and
-   3 rows (random inputs holding 0, 1 and p-1), and checks intt(ntt(a)) == a;
+   forward and inverse, at n = 2, 8, 2^9, 2^10 (one pass), 2^11, 2^13,
+   2^16, 2^17, 2^18 (two passes) and 2^21 (three) with B = 1 and 3 rows
+   (random inputs holding 0, 1 and p-1), and checks intt(ntt(a)) == a;
+   then profiles one 2^18 forward transform, which must show one kernel
+   a pass (two);
 3c. holds the Goldilocks NTT kernel gl_ntt against its plain version, bit
    for bit, forward and inverse (scaled by n^-1), at n = 2, 8, 2^9 (the
    range of the TPU's fused kernel) and 2^10, 2^12 (its stage-grid kernel)
@@ -58,17 +64,19 @@ In order, each phase raising on failure (so the exit code is non-zero):
    table), a warm-up and 4 timed batches (CUDA events around each
    `multi_scalar_mult` call on scalars already on the card), every result
    checked against the oracle; each MSM must launch te_gather_accumulate,
-   te_full_add, te_running_sum and te_combine, and neither
-   te_bucket_accumulate nor te_dbl_chain (the te_full_add +
-   te_running_sum launches of one MSM are printed); then an m = 1 run at
+   te_tree_sum (at most TREE_LAUNCHES_PER_MSM times), te_running_sum and
+   te_combine, and neither te_full_add, te_bucket_accumulate nor
+   te_dbl_chain (the merges' launches of one MSM are printed); then an m = 1 run at
    2^12 with skewed scalars (all equal; half zero, half equal),
    oracle-checked; then one profiled 2^26 MSM and the rows of the path's
    kernels at the launches it makes, each timed beside its plain version
    and its bound and checked against it: te_gather_accumulate over the
    full windows of a 2^26 batch in one launch (and window 0 alone),
    te_running_sum over the triangle merge's chunks of those bucket sums,
-   te_full_add at the merge's widest tree level, te_combine at the final
-   combine's shape (16 steps, c = 17, one lane; bound: its 555-mulmod
+   te_tree_sum at the merges' trees (the 2^26 and 2^18 merges' U roots
+   and V bit sums, the carry window; beside each time its throughput
+   bound, the card's latency floor and the design floor), te_combine at
+   the final combine's shape (16 steps, c = 17, one lane; bound: its 555-mulmod
    critical path times 2 dependent IMADs a mulmod);
 5. profiles one 2^18 MSM (device time by kernel, device idle share);
 6. times each MSM kernel of the 2^18 path that 4b's rows do not cover at
@@ -82,12 +90,14 @@ In order, each phase raising on failure (so the exit code is non-zero):
    `setup_test_srs(n + 8)` and `setup` on the card, a warm-up proof and 2
    timed proofs; every proof must verify, a proof with a tampered
    evaluation and one with a wrong public input must be rejected, and the
-   warm-up proof must have launched the Fr NTT and all five MSM kernels
-   (the timed ones every kernel but te_dbl_chain, whose tables the warm-up
-   built); the host time of one proof's transcript; then one profiled
-   proof (device time of each port kernel and of the torch ops) and the
-   Fr NTT's row at the path's shapes (2^18 forward, B = 1; 2^16 inverse,
-   B = 3).
+   warm-up proof must have launched the Fr NTT and all five kernels of
+   the collapsed route (the timed ones every kernel but te_dbl_chain,
+   whose tables the warm-up built), and no proof te_full_add (the SRS's
+   double-and-add only); the host time of one proof's transcript; then
+   one profiled proof (device time of each port kernel and of the torch
+   ops), the Fr NTT's row at the path's shapes (2^18 forward, B = 1; 2^16
+   inverse, B = 3; 2^16 forward, B = 1; with phase 3b's profile), and
+   te_full_add's row at the SRS's shape.
 
 8. (run right after 3c, before any other profile) drives the Goldilocks
    NTT at bench.py's size (`BENCH_METRIC=ntt` of the reference: 2^24
@@ -160,7 +170,12 @@ MULMODS = {"madd": 7, "add": 9, "dbl": 8,
 SW_LOG = 18                                # the SW route at 2^18 (prize 4)
 SW_BATCH_LOG, SW_BATCH = 16, 4             # msm_jit_batch: B x 2^16
 SW_SRS_LOG = 12                            # the BLS12-381 test SRS
-NTT_SIZES = (1, 3, 9, 10, 11, 13)          # log2 n of the phase-3b checks
+# log2 n of the phase-3b checks: one pass up to 2^10 (every pass length
+# from 2^1 to 2^4 among them), two from 2^11 (2^16, 2^17 and 2^18 the
+# PLONK path's), three from 2^21 (2^22's (8, 7, 7) the first uneven
+# three), at B = 1 and 3; from NTT_B1_LOG at B = 1 only
+NTT_SIZES = (1, 2, 3, 4, 9, 10, 11, 13, 16, 17, 18, 21, 22)
+NTT_B1_LOG = 22
 GL_SIZES = (1, 3, 9, 10, 12)               # log2 n of the phase-3c checks
 GL_LOG1, GL_LOG2 = 12, 12                  # bench.py's 2^24 NTT, four-step
 GL_PERIOD = 4096                           # bench.py's input repeats
@@ -187,20 +202,29 @@ PLONK_TIMED = 2
 # the MSM kernels of the collapsed route (the 2^18 MSM and the PLONK
 # commits); the m = 1 route runs te_gather_accumulate instead of the
 # first two
-COLLAPSED_ROUTE = ("te_dbl_chain", "te_bucket_accumulate", "te_full_add",
-                   "te_running_sum", "te_combine")
+COLLAPSED_ROUTE = ("te_dbl_chain", "te_bucket_accumulate", "te_running_sum",
+                   "te_tree_sum", "te_combine")
+# te_tree_sum launches an MSM may make: the triangle merge's two trees
+# and, at 2^26, the carry window's bit sums
+TREE_LAUNCHES_PER_MSM = 4
+# te_tree_sum's phase-3 shapes (rows, members, weight offset or None for
+# roots only): one member, one segment, several segments and a ragged one
+TREE_CASES = ((1, 1, None), (1, 1, 0), (1, 1, 1), (3, 64, 0), (2, 64, 1),
+              (2, 3 * 64 + 17, 1), (5, 1000, 0), (4, 777, None),
+              (1, 8192, 0))
 # each port kernel's CUDA entry points (csrc/), to find them in a profile
 KERNEL_SYMBOLS = {"te_dbl_chain": ("k_dbl_chain",),
                   "te_bucket_accumulate": ("k_bucket_accumulate",),
                   "te_gather_accumulate": ("k_gather_accumulate",),
                   "te_full_add": ("k_full_add",),
                   "te_running_sum": ("k_running_sum",),
+                  "te_tree_sum": ("k_tree_segment", "k_tree_finish"),
                   "te_combine": ("k_combine",),
                   "sw_gather_accumulate": ("k_sw_gather_accumulate",),
                   "sw_full_add": ("k_sw_full_add",),
                   "sw_running_sum": ("k_sw_running_sum",),
                   "sw_combine": ("k_sw_combine",),
-                  "fr_ntt": ("k_ntt_tile", "k_ntt_stage"),
+                  "fr_ntt": ("k_fr_pass",),
                   "gl_ntt": ("k_gl_ntt",)}
 
 
@@ -381,6 +405,37 @@ def check_combine(curve, dev):
         results[f"te_combine lanes={lanes} c={c} steps={steps}"] = \
             max_abs_err(ak.te_combine(curve, ws, c),
                         ak.te_combine_plain(curve, ws, c))
+    torch.cuda.synchronize()
+    for name, err in results.items():
+        log(f"kernel vs plain: {name} max_abs_err={err}")
+        if err != 0:
+            raise AssertionError(f"{name} disagrees with its plain version")
+
+
+def check_tree_sum(curve, dev):
+    """Phase 3: te_tree_sum == its plain version at every shape of
+    TREE_CASES (random words; identity members, edge words 0, 1 and p-1),
+    the root and every bit sum."""
+    from zprize_tpu_torch.curve import te
+    from zprize_tpu_torch.field import fp
+    from zprize_tpu_torch.msm import accum_kernel as ak
+    f = curve.field
+    nw = fp.n_words(f)
+    rng = random.Random(SEED + 11)
+    ident = te.pack(te.identity(curve, (), dev))
+    results = {}
+    for rows, k, first in TREE_CASES:
+        pts = random_elems(fp, f, (rows, k, 4), rng, dev)
+        if k > 2:
+            pts[0, 1] = ident                      # an identity member
+            for j, v in enumerate((0, 1, f.p - 1)):
+                pts[-1, k - 1 - j] = fp.raw_words(f, v, dev).expand(4, nw)
+        sums, bits = ak.te_tree_sum(curve, pts, first)
+        ref_sums, ref_bits = ak.te_tree_sum_plain(curve, pts, first)
+        err = max_abs_err(sums, ref_sums)
+        if first is not None:
+            err = max(err, max_abs_err(bits, ref_bits))
+        results[f"te_tree_sum rows={rows} k={k} first={first}"] = err
     torch.cuda.synchronize()
     for name, err in results.items():
         log(f"kernel vs plain: {name} max_abs_err={err}")
@@ -609,14 +664,17 @@ def main_path(curve, dev):
         log(f"batch {k}: {times[-1]:.3f} ms, result verified")
     launches = dict(ak.launches)
     missing = [name for name in COLLAPSED_ROUTE if launches[name] == 0]
-    if missing or launches["te_gather_accumulate"]:
+    if (missing or launches["te_gather_accumulate"]
+            or launches["te_full_add"]):
         raise AssertionError(f"main path launched no {missing}, or the m = 1"
-                             " route's te_gather_accumulate")
+                             " route's te_gather_accumulate, or te_full_add")
     if init_launches["te_dbl_chain"] == 0 or 0 in (
-            per_msm["te_bucket_accumulate"], per_msm["te_full_add"],
-            per_msm["te_running_sum"], per_msm["te_combine"]):
+            per_msm["te_bucket_accumulate"], per_msm["te_tree_sum"],
+            per_msm["te_running_sum"], per_msm["te_combine"]) or \
+            per_msm["te_tree_sum"] > TREE_LAUNCHES_PER_MSM:
         raise AssertionError(f"init {init_launches} / MSM {per_msm} "
-                             "launches miss a kernel")
+                             "launches miss a kernel, or the trees take more "
+                             f"than {TREE_LAUNCHES_PER_MSM} launches")
     mean = sum(times) / len(times)
     summary = {
         "metric": f"bls12_377_msm_2^{N_LOG}",
@@ -694,16 +752,22 @@ def prize_path(curve, dev):
             f"launches {per_msm[-1]}")
     launches = dict(ak.launches)
     for k, launched in enumerate(per_msm, 1):
-        if (0 in (launched["te_gather_accumulate"], launched["te_full_add"],
+        if (0 in (launched["te_gather_accumulate"], launched["te_tree_sum"],
                   launched["te_running_sum"], launched["te_combine"])
-                or launched["te_bucket_accumulate"]
+                or launched["te_tree_sum"] > TREE_LAUNCHES_PER_MSM
+                or launched["te_full_add"] or launched["te_bucket_accumulate"]
                 or launched["te_dbl_chain"]):
             raise AssertionError(f"2^{PRIZE_LOG} MSM {k} launches {launched}"
                                  " are not the m = 1 route's")
-    merge_launches = (per_msm[-1]["te_full_add"]
-                      + per_msm[-1]["te_running_sum"])
-    log(f"2^{PRIZE_LOG} MSM: te_full_add {per_msm[-1]['te_full_add']} + "
-        f"te_running_sum {per_msm[-1]['te_running_sum']} launches")
+    # the merges' launches: the trees, the running sums and the merge
+    # tails' folds (the final combine is the fourth te_combine)
+    merge_launches = (per_msm[-1]["te_tree_sum"]
+                      + per_msm[-1]["te_running_sum"]
+                      + per_msm[-1]["te_combine"] - 1)
+    log(f"2^{PRIZE_LOG} MSM merges: te_tree_sum {per_msm[-1]['te_tree_sum']}"
+        f" + te_running_sum {per_msm[-1]['te_running_sum']} + te_combine "
+        f"{per_msm[-1]['te_combine'] - 1} launches (te_full_add "
+        f"{per_msm[-1]['te_full_add']})")
     peak = torch.cuda.max_memory_allocated()
     n_win = pippenger.num_windows(curve, p.c)
     in_flight = {nbe: pippenger.windows_in_flight(n, nbe, len(ws), dev)
@@ -1165,8 +1229,8 @@ def prize_rows(curve, ctx, batch, launches, per_msm, lat, dev):
     2^26 batch in one launch (as many as `windows_in_flight` allows; 15
     when the card has room), and window 0 alone for continuity with the
     earlier rows; te_running_sum over the triangle merge's chunks of those
-    bucket sums; te_full_add at the merge's widest tree level (the first
-    level of the chunk-weight bit sums); te_combine at the final window
+    bucket sums; te_tree_sum at the merges' trees (`tree_row`); te_combine
+    at the final window
     combine's shape (16 steps at c = 17, one lane; bound: `fold_bound`
     with the probes' latencies `lat`).  The plain gather over all the
     windows would take many minutes, so it runs on window 0: the launch's
@@ -1245,20 +1309,121 @@ def prize_rows(curve, ctx, batch, launches, per_msm, lat, dev):
         lanes * (steps + 2) * pt_bytes, lanes=lanes, steps=steps,
         loop_of="zprize_tpu/msm/accum_kernel.py:1444")
 
-    n_bits = (c_lanes - 1).bit_length()
-    lanes = c_lanes // 2 * n_win * n_bits
-    flat = sums.reshape(-1, 4, nw)
-    idx = torch.arange(2 * lanes, device=dev) % flat.shape[0]
-    a, b = flat[idx[:lanes]], flat[idx[lanes:]]
-    skip = torch.zeros(lanes, dtype=torch.int32, device=dev)
-    row("te_full_add", "zprize_tpu/msm/accum_kernel.py:791",
-        lambda: ak.te_full_add(curve, a, b, skip),
-        lambda: ak.te_full_add_plain(curve, a, b, skip), lambda o: o, 10,
-        lanes * MULMODS["add"], lanes * (3 * pt_bytes + 4), lanes=lanes)
-
+    rows.append(tree_row(curve, sums, c_lanes, launches["te_tree_sum"],
+                         per_msm["te_tree_sum"], lat))
     rows.append(final_combine_row(curve, sums, p.c, launches["te_combine"],
                                   per_msm["te_combine"], lat))
     return rows
+
+
+def tree_work(k, first):
+    """(full adds, steps with an add) of one row of te_tree_sum over k
+    members at weight offset `first` (None: roots only): the up-sweeps of
+    `accum_kernel.te_tree_sum_plain` run on presence flags alone, per
+    segment, then across the segments per component.  The adds are what
+    these members need; each step with an add is one full add on the
+    critical path (3 mulmods deep: the four first products, T1 T2 k, the
+    closing products)."""
+    from zprize_tpu_torch.msm.accum_kernel import TREE_SEG_LOG, tree_layout
+    bits = first is not None
+    off = first or 0
+    seg = 1 << TREE_SEG_LOG
+    n_seg, n_pow, n_comp = tree_layout(k, first)
+
+    def sweep(pres, with_bits):
+        adds, steps = 0, set()
+        for t in range(len(pres).bit_length() - 1):
+            offs = [0] + ([1 << b for b in range(t)] if with_bits else [])
+            for left in range(0, len(pres), 2 << t):
+                for o in offs:
+                    li, ri = left + o, left + o + (1 << t)
+                    if pres[ri]:
+                        if pres[li]:
+                            adds += 1
+                            steps.add(t)
+                        pres[li] = True
+        return adds, steps
+
+    adds, seg_steps, fin_steps = 0, set(), set()
+    comps = [[False] * n_pow for _ in range(n_comp)]
+    for s in range(n_seg):
+        pres = [0 <= s * seg + i - off < k for i in range(seg)]
+        a, st = sweep(pres, bits)
+        adds, seg_steps = adds + a, seg_steps | st
+        for c in range(n_comp):
+            comps[c][s] = pres[(1 << c) >> 1]
+    for c in range(n_comp):
+        a, st = sweep(comps[c], bits and c == 0)
+        adds, fin_steps = adds + a, fin_steps | st
+    return adds, len(seg_steps) + len(fin_steps)
+
+
+def tree_row(curve, sums, c_lanes, launches, per_msm, lat):
+    """te_tree_sum at the merges' trees, each timed beside its plain
+    version and checked against it (bucket sums of the card's 2^26 run
+    stand in for the trees' members): the 2^26 triangle merge's V bit
+    sums (W x C chunk sums, first = 0) first, then under "shapes" its U
+    root, the 2^18 merge's V and U (1 x 8192) and the carry window's bit
+    sums (1 x 4, first = 1).  Beside each time three floors: the
+    throughput bound (its adds' mulmods at the card's IMAD rate, or its
+    bytes), the card's latency floor (the critical path, 3 mulmods a
+    step, at MULMOD_IMAD_DEPTH dependent IMADs a mulmod) and the design
+    floor (the path at one-thread mulmods); `bound_ms` is the larger of
+    the first two."""
+    from zprize_tpu_torch.field import fp
+    from zprize_tpu_torch.msm import accum_kernel as ak
+    n_win = sums.shape[0]
+    nw = fp.n_words(curve.field)
+    pt_bytes = 4 * 4 * nw
+    flat = sums.reshape(-1, 4, nw)
+    shapes = []
+    for label, rows, k, first in (
+            (f"2^{PRIZE_LOG} merge V", n_win, c_lanes, 0),
+            (f"2^{PRIZE_LOG} merge U", n_win, c_lanes, None),
+            (f"2^{N_LOG} merge V", 1, 8192, 0),
+            (f"2^{N_LOG} merge U", 1, 8192, None),
+            (f"2^{PRIZE_LOG} carry window", 1, 4, 1)):
+        pts = flat[:rows * k].reshape(rows, k, 4, nw).contiguous()
+        ms = timed(lambda: ak.te_tree_sum(curve, pts, first), 20)
+        t0 = time.time()
+        ref = ak.te_tree_sum_plain(curve, pts, first)
+        torch.cuda.synchronize()
+        plain_ms = (time.time() - t0) * 1e3
+        got = ak.te_tree_sum(curve, pts, first)
+        err = max(max_abs_err(got[0], ref[0]),
+                  0 if first is None else max_abs_err(got[1], ref[1]))
+        if err != 0:
+            raise AssertionError(f"te_tree_sum != plain at the {label}")
+        adds, steps = tree_work(k, first)
+        adds *= rows
+        n_out = 1 + (0 if first is None else ak.tree_bits(k, first))
+        thr_ms, thr_by = bound_ms(adds * MULMODS["add"],
+                                  rows * (k + n_out) * pt_bytes)
+        depth = 3 * steps
+        card_ms = depth * MULMOD_IMAD_DEPTH * lat["imad"]
+        b_ms, b_by = max((thr_ms, thr_by), (card_ms, "latency"))
+        shapes.append({"shape": label, "rows": rows, "k": k, "first": first,
+                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": b_ms, "bound_by": b_by, "adds": adds,
+                       "throughput_bound_ms": thr_ms,
+                       "depth_mulmods": depth, "latency_floor_ms": card_ms,
+                       "design_floor_ms": depth * lat["mulmod"]})
+        log(f"te_tree_sum {label} ({rows} x {k}, first {first}, {adds} adds,"
+            f" {steps} steps): {ms:.4f} ms (plain {plain_ms:.1f} ms, bound "
+            f"{b_ms:.4f} ms by {b_by}: throughput {thr_ms:.4f}, latency "
+            f"floor {card_ms:.5f}, design floor {depth * lat['mulmod']:.4f})"
+            ", kernel == plain")
+    head = shapes[0]
+    return {"name": "te_tree_sum", "route": "cuda",
+            "source": "zprize_tpu_torch/csrc/msm_te.cu",
+            "replaces": "zprize_tpu/msm/accum_kernel.py:791 (the "
+                        "per-level launches of the merges' trees)",
+            "launches": launches, "max_abs_err": max(
+                r["max_abs_err"] for r in shapes),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": None, "launches_per_msm": per_msm,
+            "shapes": shapes}
 
 
 def final_combine_row(curve, sums, c, launches, per_msm, lat):
@@ -1397,19 +1562,37 @@ def sw_rows(curve, ctx, aff, batch, launches, lat, dev):
     return out
 
 
+def random_fr(fp, f, shape, rng, gen, dev):
+    """Fr elements for the NTT checks: `random_elems` up to 2^16 values,
+    above that random words on the card below p (the top word cut under
+    p's) with 0, 1 and p-1 in the first places."""
+    count = int(np.prod(shape))
+    if count <= 1 << 16:
+        return random_elems(fp, f, shape, rng, dev)
+    nw = fp.n_words(f)
+    w = torch.randint(0, 1 << 32, (count, nw), generator=gen,
+                      dtype=torch.int64, device=dev)
+    w[:, -1] %= f.p >> (32 * (nw - 1))
+    w = w.to(torch.int32)
+    w[:3] = fp.from_ints(f, [0, 1, f.p - 1], dev)
+    return w.reshape(*shape, nw)
+
+
 def check_ntt(dev):
     """Phase 3b: fr_ntt == its plain version, forward and inverse, and the
-    round trip, at every size of NTT_SIZES with B = 1 and 3."""
+    round trip, at every size of NTT_SIZES with B = 1 and 3 (B = 1 from
+    NTT_B1_LOG; each pass count of `fr_kernel.plan`)."""
     from zprize_tpu_torch.field import fp
     from zprize_tpu_torch.field.spec import BLS12_377_FR
     from zprize_tpu_torch.ntt import fr_kernel
     from zprize_tpu_torch.ntt.domain import Domain
     f = BLS12_377_FR
     rng = random.Random(SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
     for log_n in NTT_SIZES:
         dom = Domain(f, log_n, dev)
-        for rows in (1, 3):
-            a = random_elems(fp, f, (rows, dom.n), rng, dev)
+        for rows in (1, 3) if log_n < NTT_B1_LOG else (1,):
+            a = random_fr(fp, f, (rows, dom.n), rng, gen, dev)
             errs = []
             for inverse in (False, True):
                 out = fr_kernel.fr_ntt(dom, a, inverse)
@@ -1418,8 +1601,9 @@ def check_ntt(dev):
             back = fr_kernel.fr_ntt(dom, fr_kernel.fr_ntt(dom, a), True)
             torch.cuda.synchronize()
             errs.append(max_abs_err(back, a))
-            log(f"fr_ntt vs plain, n = 2^{log_n}, B = {rows}: forward "
-                f"{errs[0]}, inverse {errs[1]}, round trip {errs[2]}")
+            log(f"fr_ntt vs plain, n = 2^{log_n}, B = {rows} (passes "
+                f"{fr_kernel.plan(log_n)}): forward {errs[0]}, inverse "
+                f"{errs[1]}, round trip {errs[2]}")
             if any(errs):
                 raise AssertionError(f"fr_ntt disagrees at 2^{log_n}, "
                                      f"B = {rows}")
@@ -1550,7 +1734,8 @@ def plonk_path(dev, n_proofs=PLONK_PROOFS, height=PLONK_HEIGHT):
     rng = random.Random(17)
 
     def counts():
-        return {**{k: ak.launches[k] for k in COLLAPSED_ROUTE},
+        return {**{k: ak.launches[k] for k in (*COLLAPSED_ROUTE,
+                                               "te_full_add")},
                 **fr_kernel.launches}
 
     t0 = time.time()
@@ -1602,12 +1787,18 @@ def plonk_path(dev, n_proofs=PLONK_PROOFS, height=PLONK_HEIGHT):
             f"{times[-1]:.3f} s, verified in {verify_s[-1]:.3f} s, "
             f"launches {per_proof[-1]}")
     path_launches = counts()
-    missing = [name for name, v in per_proof[0].items() if v == 0]
+    # te_full_add builds the SRS (its double-and-add) and runs in no proof
+    if path_launches["te_full_add"] == 0 or any(
+            launched["te_full_add"] for launched in per_proof):
+        raise AssertionError("te_full_add ran in a proof, or not for the "
+                             f"SRS: {per_proof}")
+    missing = [name for name, v in per_proof[0].items()
+               if v == 0 and name != "te_full_add"]
     if missing:
         raise AssertionError(f"the warm-up proof launched no {missing}")
     for k, launched in enumerate(per_proof[1:], 1):
         missing = [name for name, v in launched.items()
-                   if v == 0 and name != "te_dbl_chain"]
+                   if v == 0 and name not in ("te_dbl_chain", "te_full_add")]
         if missing:
             raise AssertionError(f"timed proof {k} launched no {missing}")
     bad = dict(proof.evals)
@@ -1625,7 +1816,8 @@ def plonk_path(dev, n_proofs=PLONK_PROOFS, height=PLONK_HEIGHT):
         "prove_s": times[1:], "prove_s_mean": mean,
         "ns_per_constraint": mean / cc.n * 1e9,
         "warmup_prove_s": times[0],
-        "keygen_s": keygen_s, "srs_s": srs_s, "circuit_s": circuit_s,
+        "keygen_s": keygen_s, "srs_s": srs_s, "srs_size": srs.size,
+        "circuit_s": circuit_s,
         "verify_s": verify_s, "transcript_s": tr_s,
         "max_memory_allocated": (torch.cuda.max_memory_allocated()
                                  if dev.type == "cuda" else None),
@@ -1636,18 +1828,45 @@ def plonk_path(dev, n_proofs=PLONK_PROOFS, height=PLONK_HEIGHT):
     return pk, wires, public, path_launches, summary
 
 
-def ntt_row(pk, launches, dev):
+def profile_ntt(dev):
+    """Phase 3b: one profiled 2^18 forward fr_ntt (the PLONK quotient's
+    size), which must run one kernel a pass of `fr_kernel.plan` (two: two
+    trips through device memory).  Run early, as phase 8: late in a run,
+    after the large profiles, this short window's trace came back without
+    its device events."""
+    from zprize_tpu_torch.field import fp
+    from zprize_tpu_torch.field.spec import BLS12_377_FR
+    from zprize_tpu_torch.ntt import fr_kernel
+    from zprize_tpu_torch.ntt.domain import Domain
+    dom = Domain(BLS12_377_FR, N_LOG, dev)
+    a = random_elems(fp, BLS12_377_FR, (1, dom.n), random.Random(SEED + 1),
+                     dev)
+    prof = profile_call(f"fr_ntt 2^{N_LOG} forward",
+                        lambda: fr_kernel.fr_ntt(dom, a))
+    passes = len(fr_kernel.plan(N_LOG))
+    if not prof["complete"] or prof["traced"].get("fr_ntt") != passes:
+        raise AssertionError(f"a 2^{N_LOG} fr_ntt traced {prof['traced']} "
+                             f"kernels, not {passes} passes")
+    log(f"fr_ntt 2^{N_LOG}: {passes} passes traced, device "
+        f"{prof['port_kernels_ms']['fr_ntt']:.4f} ms")
+    return {k: prof[k] for k in ("traced", "by_kernel", "port_kernels_ms",
+                                 "complete")}
+
+
+def ntt_row(pk, launches, prof, dev):
     """The Fr NTT at the PLONK path's shapes, timed beside its plain
     version and its bound, and checked against the plain version: the
-    quotient's 2^18 coset transform (forward, B = 1) first, and the wires'
-    2^16 inverse (B = 3) under "shapes"."""
+    quotient's 2^18 coset transform (forward, B = 1) first, and under
+    "shapes" the wires' 2^16 inverse (B = 3) and a 2^16 forward (B = 1);
+    `prof` is phase 3b's profiled 2^18 transform."""
     from zprize_tpu_torch.field import fp
     from zprize_tpu_torch.ntt import fr_kernel
     fr_kernel.reset_launches()
     f = pk.dom.spec
     rng = random.Random(SEED + 1)
     shapes = []
-    for dom, rows, inverse in ((pk.dom4, 1, False), (pk.dom, 3, True)):
+    for dom, rows, inverse in ((pk.dom4, 1, False), (pk.dom, 3, True),
+                               (pk.dom, 1, False)):
         a = random_elems(fp, f, (rows, dom.n), rng, dev)
         ms = timed(lambda: fr_kernel.fr_ntt(dom, a, inverse), 10)
         t0 = time.time()
@@ -1662,6 +1881,7 @@ def ntt_row(pk, launches, dev):
         n_bytes = rows * n * 32 * 2 + n // 2 * 32
         b_ms, b_by = bound_ms(mulmods, n_bytes, IMAD_PER_MULMOD_FR)
         shapes.append({"n": n, "rows": rows, "inverse": inverse,
+                       "passes": fr_kernel.plan(dom.log_n),
                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                        "bound_ms": b_ms, "bound_by": b_by})
         way = "inverse" if inverse else "forward"
@@ -1676,7 +1896,44 @@ def ntt_row(pk, launches, dev):
             "max_abs_err": max(r["max_abs_err"] for r in shapes),
             "ms": first["ms"], "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
-            "library_ms": None, "shapes": shapes}
+            "library_ms": None, "shapes": shapes,
+            f"profile_2^{N_LOG}": prof}
+
+
+def srs_full_add_row(curve, lanes, launches, dev):
+    """te_full_add at the shape the test SRS gives it (`kzg.scalar_mul_te`:
+    one add of `lanes` lanes a scalar bit, the bit as the skip mask),
+    timed beside its plain version and its bound, and checked against
+    it."""
+    from zprize_tpu_torch.field import fp
+    from zprize_tpu_torch.msm import accum_kernel as ak
+    f = curve.field
+    rng = random.Random(SEED + 2)
+    p = random_elems(fp, f, (lanes, 4), rng, dev)
+    q = random_elems(fp, f, (lanes, 4), rng, dev)
+    skip = torch.randint(0, 2, (lanes,), dtype=torch.int32, device=dev)
+    ms = timed(lambda: ak.te_full_add(curve, p, q, skip), 20)
+    t0 = time.time()
+    ref = ak.te_full_add_plain(curve, p, q, skip)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    err = max_abs_err(ak.te_full_add(curve, p, q, skip), ref)
+    if err != 0:
+        raise AssertionError("te_full_add != plain at the SRS's shape")
+    added = int((skip == 0).sum())
+    pt_bytes = 4 * 4 * fp.n_words(f)
+    # p, the mask and the output of every lane; q only where the lane adds
+    b_ms, b_by = bound_ms(added * MULMODS["add"],
+                          lanes * (2 * pt_bytes + 4) + added * pt_bytes)
+    log(f"te_full_add at the SRS's {lanes} lanes: {ms:.4f} ms (plain "
+        f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms by {b_by}), kernel == plain")
+    return {"name": "te_full_add", "route": "cuda",
+            "source": "zprize_tpu_torch/csrc/msm_te.cu",
+            "replaces": "zprize_tpu/msm/accum_kernel.py:791",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "lanes": lanes, "added_lanes": added,
+            "launches_of": "the PLONK path's test SRS"}
 
 
 def gl_bound(log_n, b, step_log=0, scale=False):
@@ -1915,6 +2172,7 @@ def main():
     for lanes in (4096, 1000):
         check_kernels_random(curve, dev, lanes)
     check_combine(curve, dev)
+    check_tree_sum(curve, dev)
     probe_rows, lat = latency_rows(curve, dev)
     # the probes are on no path: count their launches over all of them
     probe.reset_launches()
@@ -1924,6 +2182,7 @@ def main():
             check_sw_kernels(sw_curve, dev, lanes)
     log(f"phase 3d: {time.time() - t0:.1f} s")
     check_ntt(dev)
+    ntt_prof = profile_ntt(dev)
     check_gl_ntt(dev)
     # phase 8 runs before the MSM phases: late in a run, after their large
     # profiles, the trace of its short window came back without some or
@@ -1954,7 +2213,9 @@ def main():
     pk, wires, public, plonk_launches, plonk = plonk_path(dev)
     plonk["profile"] = profile_call("PLONK proof", lambda: prover.prove_planes(
         pk, wires, public, blinding_rng=random.Random(18)))
-    kernels.append(ntt_row(pk, plonk_launches, dev))
+    kernels.append(ntt_row(pk, plonk_launches, ntt_prof, dev))
+    kernels.append(srs_full_add_row(curve, plonk["srs_size"],
+                                    plonk_launches["te_full_add"], dev))
     kernels.append(gl_kernel_row)
     kernels.extend(sw_kernel_rows)
     for row in probe_rows:

@@ -22,6 +22,7 @@ from zprize_tpu_torch.msm import api
 from zprize_tpu_torch.ntt import gl_kernel
 from zprize_tpu_torch.ntt.domain import Domain
 from zprize_tpu_torch.pcs import kzg
+from zprize_tpu_torch.utils import device
 from torch_memory import release_memory  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -113,6 +114,22 @@ def test_converters_require_a_card_by_default(name):
         pytest.skip("a CUDA device is present: the default device is valid")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _CONVERTERS[name]()
+
+
+@pytest.mark.parametrize("devices, expect", [
+    (("cpu",), False), (("cpu", "cpu"), False),
+    (("meta",), ValueError), (("cpu", "meta"), ValueError)],
+    ids=["cpu", "cpu pair", "meta", "mixed"])
+def test_wrappers_dispatch_on_their_tensors_device(devices, expect):
+    """The kernel wrappers' one dispatch test: CPU tensors take the plain
+    version, any other device but the card raises, and so do tensors on
+    several devices."""
+    tensors = [torch.zeros(2, device=d) for d in devices]
+    if expect is ValueError:
+        with pytest.raises(ValueError):
+            device.on_card(*tensors)
+    else:
+        assert device.on_card(*tensors) is expect
 
 
 def test_chip_smoke_refuses_without_card_or_package(tmp_path):

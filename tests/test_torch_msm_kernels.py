@@ -359,6 +359,74 @@ def test_wrappers_take_plain_route_on_cpu_and_check_inputs(te_affine):
         ak.te_dbl_chain(CURVE, pts.to("meta"), 1)
 
 
+def _port_points(te_affine, idx, seed, shape):
+    """The chain points idx at random projective scales, packed (port
+    only) in `shape`."""
+    coords = _extended_ints(te_affine, idx, seed)
+    return te.pack(te.TePoint(*(fp.from_ints(CURVE.field, np.array(
+        c, dtype=object).reshape(shape)) for c in coords)))
+
+
+def _affine_of(k):
+    """The TE affine ints of k·G (the identity for k = 0 mod r)."""
+    return oracle.te_affine_ints(CURVE, oracle.ec_mul(
+        oracle.generator(CURVE), k % CURVE.order, P))
+
+
+@pytest.mark.parametrize("rows, k, first", [
+    (1, 1, None), (1, 1, 0), (1, 1, 1),   # one member (weight 0 has no bit)
+    (2, 7, 1),                             # odd K, R > 1
+    (1, 64, 0),                            # one whole segment
+    (1, 63, 1),                            # weight 63 fills the segment
+    (3, 100, 0),                           # two segments, the second ragged
+    (2, 200, 1),                           # four segments: the finish's order
+    (1, 300, None)],                       # roots only, five segments
+    ids=["K1", "K1 first0", "K1 first1", "R2 K7 first1", "K64 first0",
+         "K63 first1", "R3 K100 first0", "R2 K200 first1", "K300 root"])
+def test_tree_sum_matches_ints(te_affine, rows, k, first):
+    """te_tree_sum (plain on the CPU) against python ints: each row's sum
+    and every bit sum S_j = sum of the members whose weight first + m has
+    bit j, the identity where none has; at first = 0 (the same slots) the
+    root words do not depend on whether the bits are asked for."""
+    idx = [(5 * r + 3 * m + m * m) % N_BASE for r in range(rows)
+           for m in range(k)]
+    pts = _port_points(te_affine, idx, 12 + k, (rows, k))
+    ak.reset_launches()
+    sums, bits = ak.te_tree_sum(CURVE, pts, first)
+    assert set(ak.launches.values()) == {0}             # no kernel on CPU
+    scal = [[idx[r * k + m] + 1 for m in range(k)] for r in range(rows)]
+    assert sums.shape == (rows, 4, fp.n_words(CURVE.field))
+    assert _affine(sums) == [_affine_of(sum(row)) for row in scal]
+    if first is None:
+        assert bits is None
+        return
+    n_bits = ak.tree_bits(k, first)
+    assert n_bits == max(1, (first + k - 1).bit_length())
+    assert bits.shape == (n_bits, rows, 4, fp.n_words(CURVE.field))
+    for j in range(n_bits):
+        assert _affine(bits[j]) == [
+            _affine_of(sum(v for m, v in enumerate(row)
+                           if (first + m) >> j & 1)) for row in scal], j
+    if first == 0:
+        assert torch.equal(ak.te_tree_sum(CURVE, pts)[0], sums)
+
+
+def test_tree_sum_checks_its_input(te_affine):
+    pts = _port_points(te_affine, list(range(12)), 13, (3, 4))
+    with pytest.raises(TypeError):
+        ak.te_tree_sum(CURVE, pts.to(torch.int64))
+    with pytest.raises(ValueError):                     # (L, 4, nw): no K
+        ak.te_tree_sum(CURVE, pts[:, 0].contiguous())
+    with pytest.raises(ValueError):                     # K = 0
+        ak.te_tree_sum(CURVE, pts[:, :0].contiguous())
+    with pytest.raises(ValueError):
+        ak.te_tree_sum(CURVE, pts.transpose(0, 1))
+    with pytest.raises(ValueError):
+        ak.te_tree_sum(CURVE, pts, -1)
+    with pytest.raises(ValueError):
+        ak.te_tree_sum(CURVE, pts.to("meta"))
+
+
 @pytest.mark.parametrize("fold, n_steps, c, depth", [
     (probe.te_combine_depth, 16, 17, 555),    # the 2^26 final combine
     (probe.te_combine_depth, 13, 1, 60),      # a merge tail's fold

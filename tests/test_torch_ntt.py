@@ -124,3 +124,21 @@ def test_wrapper_checks_its_input():
     meta = torch.empty((1, 8, 8), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="domain tables"):
         fr_kernel.fr_ntt(dom, meta)
+
+
+@pytest.mark.parametrize("log_n", range(1, fr_kernel.MAX_LOG + 1))
+def test_plan_covers_every_size(log_n):
+    """The kernel's passes: factors of at most 2^10 that multiply to n,
+    one pass up to 2^10, two up to 2^20, three up to 2^30, as even as
+    they go."""
+    factors = fr_kernel.plan(log_n)
+    assert sum(factors) == log_n
+    assert all(1 <= f <= fr_kernel.MAX_PASS_LOG for f in factors)
+    assert len(factors) == -(-log_n // 10) <= 3
+    assert max(factors) - min(factors) <= 1
+
+
+@pytest.mark.parametrize("log_n", [0, 31])
+def test_plan_refuses_sizes_out_of_range(log_n):
+    with pytest.raises(ValueError, match="2\\^1..2\\^30"):
+        fr_kernel.plan(log_n)

@@ -101,6 +101,16 @@ __device__ __forceinline__ Fe<NW> load16(const uint32_t* src) {
   return r;
 }
 
+// NW words to a 16-byte aligned address, as NW / 4 vector stores
+template <int NW>
+__device__ __forceinline__ void store16(uint32_t* dst, const Fe<NW>& a) {
+  uint4* d = reinterpret_cast<uint4*>(dst);
+#pragma unroll
+  for (int k = 0; k < NW / 4; ++k)
+    d[k] = make_uint4(a.v[4 * k], a.v[4 * k + 1], a.v[4 * k + 2],
+                      a.v[4 * k + 3]);
+}
+
 template <int NW>
 __device__ __forceinline__ void store(uint32_t* dst, const Fe<NW>& a) {
 #pragma unroll

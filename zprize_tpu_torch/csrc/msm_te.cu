@@ -1,6 +1,7 @@
 // Twisted-Edwards (a = -1, extended coordinates) MSM kernels for Hopper.
 //
-// Six kernels and two measurement probes (k_mul_chain, k_imad_chain),
+// Seven kernels (te_tree_sum's in two launches) and two measurement
+// probes (k_mul_chain, k_imad_chain),
 // each with a plain C launcher that ctypes binds
 // (zprize_tpu_torch/msm/accum_kernel.py holds the kernels' wrappers and
 // plain PyTorch versions, zprize_tpu_torch/msm/probe.py the probes').  A
@@ -17,8 +18,9 @@
 // (add_mixed, add, dbl): keep them in lockstep, since kernel and plain
 // version must agree bit for bit.
 //
-// What bounds five of the six on an H100: 32-bit integer multiplies
-// (k_combine, a serial fold, is bound by the latency of its chain).  One
+// What bounds five of the seven on an H100: 32-bit integer multiplies
+// (k_combine, a serial fold, and te_tree_sum's trees are bound by the
+// latency of their chains).  One
 // field multiplication (mulmod) is 588 IMADs on the carry chains of
 // csrc/fq.cuh;
 // the kernels read and write a few hundred bytes per thousands of
@@ -269,9 +271,9 @@ __global__ void __launch_bounds__(BLOCK, GATHER_MIN_BLOCKS)
 }
 
 // te_full_add: replaces make_te_full_add (zprize_tpu/msm/accum_kernel.py),
-// the adder of the bucket-sum trees and the bit-decomposed merge.  Bound:
-// 9 mulmods per lane.  Design: one thread per lane; skip lanes pass p
-// through.
+// a lane-wise full add (the test SRS's double-and-add; the merges' trees
+// are te_tree_sum's).  Bound: 9 mulmods per lane.  Design: one thread per
+// lane; skip lanes pass p through.
 __global__ void __launch_bounds__(BLOCK)
     k_full_add(const uint32_t* params, const uint32_t* p, const uint32_t* q,
                const int32_t* skip, uint32_t* out, long long n) {
@@ -457,6 +459,168 @@ __global__ void __launch_bounds__(BLOCK)
   fq::store(out + i * PT_WORDS + g * NW, v);
 }
 
+// te_tree_sum: replaces the per-level launches of make_te_full_add
+// (zprize_tpu/msm/accum_kernel.py) through which the bucket merges reduce
+// their trees: the row sums of pts (rows, k, 4, 12) and, for a weight
+// offset `first`, the bit sums S_j[r] = sum of the members m whose
+// weight first + m has bit j set.
+//
+// The order of the adds is te_tree_sum_plain's (msm/accum_kernel.py),
+// so the words agree.  Member m sits in slot first + m of its row (the
+// first slots and the tail are absent); the slots are cut into
+// segments of TREE_SEG.  Each segment is summed by an in-place up-sweep:
+// at step t the nodes of level t pair up, L = 2 j 2^t and R = L + 2^t,
+// and x[L] += x[R].  A position m != 0 is then left holding the odd node
+// of level tz(m) (tz: trailing zeros) that starts there, and a weight has
+// bit j set exactly when it lies in an odd level-j node: S_j is the sum
+// of the positions with tz = j.  Those sums ride in the same up-sweep:
+// step t also adds x[L + 2^b] += x[R + 2^b] for b < t, so after the last
+// step x[2^b] holds the segment's part of S_b and x[0] its root.  An
+// absent right operand leaves the left as it is, an absent left takes
+// the right's words: no identity is materialised or added.  A second
+// kernel runs the same up-sweep across the segments of each row, one
+// block per (row, component): the roots (with the bits above the
+// segment) and, apart, each bit's partials (no bits).
+//
+// What bounds it: the chain, not the multiplies.  About 2k full adds a
+// row with bits (k without), each 9 mulmods; at the 2^26 merge's 15 rows
+// of 2048 that is 0.03 ms of the card's multiply rate, while the
+// critical path is log2(first + k) steps of one full add (3 mulmods
+// deep) plus a second launch.  Design: a group of GROUP threads runs one
+// add (te_combine's group_add: thread g holds coordinate g and one of
+// the four independent products), a segment of 64 slots sits in shared
+// memory (12 KB) under a block of 32 groups, and the segments' partials
+// go through global memory to the second launch.
+constexpr int TREE_SEG_LOG = 6;
+constexpr int TREE_SEG = 1 << TREE_SEG_LOG;
+constexpr int TREE_GROUPS = BLOCK / GROUP;
+
+// One step t of the up-sweep over the positions of x (PT_WORDS each) and
+// their presence flags: positions n_live and up are absent, n_pos is a
+// power of two.  Item (j, c) of the step is pair j's node add (c = 0) or
+// its bit-(c - 1) partials (c = 1 .. t, when `bits`); group grp takes
+// items grp, grp + TREE_GROUPS, ...  The items of a step touch disjoint
+// positions; the caller puts a barrier between steps.
+__device__ __forceinline__ void tree_step(uint32_t* x, int32_t* present,
+                                          int n_live, int n_pos, int t,
+                                          bool bits, int grp, int g,
+                                          unsigned mask, uint32_t* slots,
+                                          const Params& P) {
+  const int pairs = n_pos >> (t + 1);
+  const int items = pairs * (bits ? t + 1 : 1);
+  for (int it = grp; it < items; it += TREE_GROUPS) {
+    const int j = it % pairs, c = it / pairs;
+    const int li = (j << (t + 1)) + (c ? 1 << (c - 1) : 0);
+    const int ri = li + (1 << t);
+    if (ri >= n_live || !present[ri]) continue;   // the same in the group
+    const bool pl = present[li] != 0;
+    __syncwarp(mask);                   // the group has read the flags
+    uint32_t* const lp = x + (long long)li * PT_WORDS;
+    const uint32_t* const rp = x + (long long)ri * PT_WORDS;
+    Fq v;
+    if (pl) {
+      v = group_add(fq::load<NW>(lp + g * NW), add_operand(rp, g, P), g,
+                    slots, mask, P);
+    } else {
+      v = fq::load<NW>(rp + g * NW);
+    }
+    fq::store(lp + g * NW, v);
+    if (g == 0) present[li] = 1;
+  }
+}
+
+// Pass 1: block (row, s) sums segment s of its row.  Writes component c
+// of the segment (c = 0 the root, c = 1 + b the partial of bit b) to
+// seg_pts[row, c, s] and its presence to seg_flags[row, c, s], for c <
+// n_comp.
+__global__ void __launch_bounds__(BLOCK)
+    k_tree_segment(const uint32_t* params, const uint32_t* pts,
+                   uint32_t* seg_pts, int32_t* seg_flags, long long k,
+                   int first, int n_seg, int n_comp, int n_pow, int bits) {
+  __shared__ Params P;
+  __shared__ uint32_t xs[TREE_SEG * PT_WORDS];
+  __shared__ int32_t present[TREE_SEG];
+  __shared__ uint32_t slots[NW * BLOCK];
+  fq::load_params(P, params);
+  const long long row = blockIdx.x / n_seg;
+  const int s = blockIdx.x % n_seg;
+  const long long m0 = (long long)s * TREE_SEG - first;  // slot 0's member
+  const uint32_t* const src = pts + row * k * PT_WORDS;
+  for (int e = threadIdx.x; e < TREE_SEG * PT_WORDS; e += BLOCK) {
+    const long long m = m0 + e / PT_WORDS;
+    xs[e] = m >= 0 && m < k ? src[m * PT_WORDS + e % PT_WORDS] : 0;
+  }
+  for (int i = threadIdx.x; i < TREE_SEG; i += BLOCK)
+    present[i] = m0 + i >= 0 && m0 + i < k;
+  __syncthreads();
+  const int grp = threadIdx.x / GROUP, g = threadIdx.x & (GROUP - 1);
+  const unsigned mask = ((1u << GROUP) - 1)
+                        << (threadIdx.x & 31 & ~(GROUP - 1));
+  for (int t = 0; t < TREE_SEG_LOG; ++t) {
+    tree_step(xs, present, TREE_SEG, TREE_SEG, t, bits != 0, grp, g, mask,
+              slots, P);
+    __syncthreads();
+  }
+  for (int e = threadIdx.x; e < n_comp * PT_WORDS; e += BLOCK) {
+    const int c = e / PT_WORDS, w = e % PT_WORDS;
+    const int pos = c ? 1 << (c - 1) : 0;
+    seg_pts[((row * n_comp + c) * n_pow + s) * PT_WORDS + w] =
+        xs[pos * PT_WORDS + w];
+  }
+  for (int c = threadIdx.x; c < n_comp; c += BLOCK)
+    seg_flags[(row * n_comp + c) * n_pow + s] = present[c ? 1 << (c - 1) : 0];
+}
+
+// dst = the point at src if `live`, else the identity (thread by thread)
+__device__ __forceinline__ void copy_or_identity(uint32_t* dst,
+                                                 const uint32_t* src,
+                                                 bool live, const Params& P) {
+  for (int w = threadIdx.x; w < PT_WORDS; w += BLOCK) {
+    const int c = w / NW;
+    dst[w] = live ? src[w] : (c == 1 || c == 2) ? P.one[w % NW] : 0;
+  }
+}
+
+// Pass 2: block (row, c) runs the up-sweep over the n_seg segments'
+// component c in place in seg_pts (with the bits above the segment for
+// c = 0 when `bits`), then writes the row sum (c = 0) and the bit sums:
+// bit b < TREE_SEG_LOG from component 1 + b, bit TREE_SEG_LOG + b from
+// position 2^b of component 0; an absent one as the identity.
+__global__ void __launch_bounds__(BLOCK)
+    k_tree_finish(const uint32_t* params, uint32_t* seg_pts,
+                  int32_t* seg_flags, uint32_t* sums, uint32_t* bit_sums,
+                  long long rows, int n_seg, int n_comp, int n_pow,
+                  int n_bits) {
+  __shared__ Params P;
+  __shared__ uint32_t slots[NW * BLOCK];
+  fq::load_params(P, params);
+  const long long row = blockIdx.x / n_comp;
+  const int c = blockIdx.x % n_comp;
+  uint32_t* const x = seg_pts + (row * n_comp + c) * n_pow * PT_WORDS;
+  int32_t* const present = seg_flags + (row * n_comp + c) * n_pow;
+  const int grp = threadIdx.x / GROUP, g = threadIdx.x & (GROUP - 1);
+  const unsigned mask = ((1u << GROUP) - 1)
+                        << (threadIdx.x & 31 & ~(GROUP - 1));
+  const bool bits = bit_sums != nullptr;
+  for (int t = 0; (1 << (t + 1)) <= n_pow; ++t) {
+    tree_step(x, present, n_seg, n_pow, t, bits && c == 0, grp, g, mask,
+              slots, P);
+    __syncthreads();
+  }
+  if (c == 0) {
+    copy_or_identity(sums + row * PT_WORDS, x, true, P);
+    for (int j = TREE_SEG_LOG; bits && j < n_bits; ++j) {
+      const int pos = 1 << (j - TREE_SEG_LOG);
+      copy_or_identity(bit_sums + ((long long)j * rows + row) * PT_WORDS,
+                       x + (long long)pos * PT_WORDS,
+                       pos < n_seg && present[pos], P);
+    }
+  } else {
+    copy_or_identity(bit_sums + ((long long)(c - 1) * rows + row) * PT_WORDS,
+                     x, present[0] != 0, P);
+  }
+}
+
 // fq_mul_chain: replaces no TPU kernel.  A measurement probe: lane i
 // multiplies x_i by y_i k times in a row (Montgomery products, so out_i =
 // x_i y_i^k R^-k), each product waiting for the one before, so its time
@@ -572,6 +736,39 @@ int te_combine(const void* params, const void* ws, void* out, int n_steps,
   k_combine<<<grid_for(lanes * GROUP), BLOCK, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)params, (const uint32_t*)ws, (uint32_t*)out, n_steps,
       lanes, c);
+  return (int)cudaGetLastError();
+}
+
+// sums (rows, 4, 12) = the row sums of pts (rows, k, 4, 12); if bit_sums
+// is not null, also the bit sums (n_bits, rows, 4, 12) of weights first
+// + m.  seg_pts (rows, n_comp, n_pow, 4, 12) and seg_flags (rows,
+// n_comp, n_pow) are scratch, with n_seg = ceil((first + k) / 2^seg_log),
+// n_pow the power of two at or above it and n_comp = 1 + min(seg_log,
+// n_bits) with bits, else 1; seg_log must be TREE_SEG_LOG (the caller's
+// sizes follow it).  Two launches on `stream`.
+int te_tree_sum(const void* params, const void* pts, void* seg_pts,
+                void* seg_flags, void* sums, void* bit_sums, long long rows,
+                long long k, int first, int n_bits, int seg_log,
+                void* stream) {
+  if (rows <= 0) return 0;
+  if (seg_log != TREE_SEG_LOG || k < 1 || first < 0 || n_bits < 1)
+    return (int)cudaErrorInvalidValue;
+  const int n_seg = (int)((first + k + TREE_SEG - 1) / TREE_SEG);
+  int n_pow = 1;
+  while (n_pow < n_seg) n_pow *= 2;
+  const bool bits = bit_sums != nullptr;
+  const int n_comp =
+      bits ? 1 + (n_bits < TREE_SEG_LOG ? n_bits : TREE_SEG_LOG) : 1;
+  cudaStream_t st = (cudaStream_t)stream;
+  k_tree_segment<<<(unsigned)(rows * n_seg), BLOCK, 0, st>>>(
+      (const uint32_t*)params, (const uint32_t*)pts, (uint32_t*)seg_pts,
+      (int32_t*)seg_flags, k, first, n_seg, n_comp, n_pow, bits);
+  const int rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  k_tree_finish<<<(unsigned)(rows * n_comp), BLOCK, 0, st>>>(
+      (const uint32_t*)params, (uint32_t*)seg_pts, (int32_t*)seg_flags,
+      (uint32_t*)sums, (uint32_t*)bit_sums, rows, n_seg, n_comp, n_pow,
+      n_bits);
   return (int)cudaGetLastError();
 }
 

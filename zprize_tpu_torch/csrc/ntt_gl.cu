@@ -68,6 +68,7 @@
 
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstddef>
 #include <cstdint>
 #include <type_traits>
@@ -379,20 +380,30 @@ __global__ void __launch_bounds__(TB, SM_THREADS / TB)
   }
 }
 
+// devices whose attribute settings configure() remembers; a device past
+// them gets its attributes set at every launch
+constexpr int MAX_DEVICES = 64;
+
 // lets the <L, TB> instance use its shared memory (above the default
-// 48 KB) and asks for the largest shared-memory carveout, once
+// 48 KB) and asks for the largest shared-memory carveout on the current
+// device, once a device: a kernel's attributes are the device's, not the
+// process's
 template <int L, int TB>
 int configure() {
-  static int rc = -1;
-  if (rc == -1) {
+  static std::atomic<bool> done[MAX_DEVICES];
+  int dev = 0;
+  if (int rc = (int)cudaGetDevice(&dev)) return rc;
+  if (dev < MAX_DEVICES && done[dev].load(std::memory_order_relaxed))
+    return 0;
+  int rc = (int)cudaFuncSetAttribute(
+      k_gl_ntt<L, TB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)Plan<L, TB>::SMEM);
+  if (rc == 0)
     rc = (int)cudaFuncSetAttribute(
-        k_gl_ntt<L, TB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)Plan<L, TB>::SMEM);
-    if (rc == 0)
-      rc = (int)cudaFuncSetAttribute(
-          k_gl_ntt<L, TB>, cudaFuncAttributePreferredSharedMemoryCarveout,
-          (int)cudaSharedmemCarveoutMaxShared);
-  }
+        k_gl_ntt<L, TB>, cudaFuncAttributePreferredSharedMemoryCarveout,
+        (int)cudaSharedmemCarveoutMaxShared);
+  if (rc == 0 && dev < MAX_DEVICES)
+    done[dev].store(true, std::memory_order_relaxed);
   return rc;
 }
 

@@ -1,4 +1,4 @@
-"""The ten MSM kernels, six twisted-Edwards and four short-Weierstrass:
+"""The eleven MSM kernels, seven twisted-Edwards and four short-Weierstrass:
 wrappers, launch counts and plain versions.
 
 Each wrapper takes int32 Montgomery-word tensors (layouts in
@@ -23,6 +23,7 @@ hold each kernel against them bit for bit.
 | te_gather_accumulate  | make_te_mixed_add (+ the rank loop of accumulate_te_pallas) |
 | te_full_add           | make_te_full_add                                         |
 | te_running_sum        | the 2S make_te_full_add launches of merge_te_triangle_pallas |
+| te_tree_sum           | the per-level make_te_full_add launches of the merges' trees |
 | te_combine            | make_te_combine                                          |
 | sw_gather_accumulate  | make_mixed_add, make_mixed_add_multi, make_mixed_add_rect (+ their rank loops) |
 | sw_full_add           | make_full_add                                            |
@@ -40,10 +41,11 @@ import torch
 from ..curve import sw, te
 from ..curve.spec import CurveSpec
 from ..field import fp
+from ..utils import device as _device
 
 TE_KERNELS = ("te_dbl_chain", "te_bucket_accumulate",
               "te_gather_accumulate", "te_full_add", "te_running_sum",
-              "te_combine")
+              "te_tree_sum", "te_combine")
 SW_KERNELS = ("sw_gather_accumulate", "sw_full_add", "sw_running_sum",
               "sw_combine")
 # the curves' 3b for which csrc/msm_sw.cu has an instantiation (it
@@ -72,6 +74,8 @@ def _lib() -> ctypes.CDLL:
                                          ll, vp]
     lib.te_full_add.argtypes = [vp, vp, vp, vp, vp, ll, vp]
     lib.te_running_sum.argtypes = [vp, vp, vp, vp, ll, ci, vp]
+    lib.te_tree_sum.argtypes = [vp, vp, vp, vp, vp, vp, ll, ll, ci, ci, ci,
+                                vp]
     lib.te_combine.argtypes = [vp, vp, vp, ci, ll, ci, vp]
     for name in TE_KERNELS:
         getattr(lib, name).restype = ci
@@ -131,19 +135,6 @@ def _sw_b3(curve: CurveSpec) -> int:
     return curve.b3
 
 
-def _on_card(*tensors: torch.Tensor) -> bool:
-    """True for CUDA tensors (launch the kernel), False for CPU tensors
-    (plain version); anything else raises."""
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"tensors on several devices: {devices}")
-    dev = devices.pop()
-    if dev.type == "cuda":
-        return True
-    if dev.type == "cpu":
-        return False
-    raise ValueError(f"unsupported device {dev}")
-
 
 def _check(name: str, t: torch.Tensor, tail: tuple, dtype=torch.int32
            ) -> None:
@@ -164,10 +155,6 @@ def _launch(name: str, rc: int) -> None:
         raise RuntimeError(f"{name} launch failed: cuda error {rc} ({err})")
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def _pt_tail(curve: CurveSpec, rows: int = 4) -> tuple:
     return (rows, fp.n_words(curve.field))
 
@@ -181,13 +168,13 @@ def te_dbl_chain(curve: CurveSpec, pts: torch.Tensor, n_dbls: int
                  ) -> torch.Tensor:
     """`n_dbls` sequential doublings of every point of pts (..., 4, nw)."""
     _check("pts", pts, _pt_tail(curve))
-    if not _on_card(pts):
+    if not _device.on_card(pts):
         return te_dbl_chain_plain(curve, pts, n_dbls)
     out = torch.empty_like(pts)
     n = pts.numel() // (4 * fp.n_words(curve.field))
     rc = _lib().te_dbl_chain(device_params(curve, pts.device).data_ptr(),
                              pts.data_ptr(), out.data_ptr(), n, n_dbls,
-                             _stream(pts))
+                             _device.stream(pts))
     _launch("te_dbl_chain", rc)
     return out
 
@@ -221,14 +208,14 @@ def te_bucket_accumulate(curve: CurveSpec, rows: torch.Tensor,
     nbe = starts.shape[0]
     _check("starts", starts, (nbe,), torch.int64)
     _check("counts", counts, (nbe,), torch.int64)
-    if not _on_card(rows, sign, starts, counts):
+    if not _device.on_card(rows, sign, starts, counts):
         return te_bucket_accumulate_plain(curve, rows, sign, starts, counts)
     out = torch.empty((nbe, *_pt_tail(curve)), dtype=torch.int32,
                       device=rows.device)
     rc = _lib().te_bucket_accumulate(
         device_params(curve, rows.device).data_ptr(), rows.data_ptr(),
         sign.data_ptr(), starts.data_ptr(), counts.data_ptr(),
-        out.data_ptr(), nbe, _stream(rows))
+        out.data_ptr(), nbe, _device.stream(rows))
     _launch("te_bucket_accumulate", rc)
     return out
 
@@ -281,7 +268,7 @@ def te_gather_accumulate(curve: CurveSpec, table: torch.Tensor,
     _check("sign", sign, tuple(perm.shape))
     _check("starts", starts, (n_win, nbe), torch.int64)
     _check("counts", counts, (n_win, nbe), torch.int64)
-    if not _on_card(table, perm, sign, starts, counts):
+    if not _device.on_card(table, perm, sign, starts, counts):
         return te_gather_accumulate_plain(curve, table, perm, sign, starts,
                                           counts)
     if table.data_ptr() % 16:
@@ -292,7 +279,7 @@ def te_gather_accumulate(curve: CurveSpec, table: torch.Tensor,
         device_params(curve, table.device).data_ptr(), table.data_ptr(),
         perm.data_ptr(), sign.data_ptr(), starts.data_ptr(),
         counts.data_ptr(), out.data_ptr(), table.shape[0], nbe,
-        n_win * nbe, _stream(table))
+        n_win * nbe, _device.stream(table))
     _launch("te_gather_accumulate", rc)
     return out
 
@@ -327,13 +314,13 @@ def te_full_add(curve: CurveSpec, p: torch.Tensor, q: torch.Tensor,
     _check("p", p, _pt_tail(curve))
     _check("q", q, tuple(p.shape))
     _check("skip", skip, tuple(p.shape[:-2]))
-    if not _on_card(p, q, skip):
+    if not _device.on_card(p, q, skip):
         return te_full_add_plain(curve, p, q, skip)
     out = torch.empty_like(p)
     n = p.numel() // (4 * fp.n_words(curve.field))
     rc = _lib().te_full_add(device_params(curve, p.device).data_ptr(),
                             p.data_ptr(), q.data_ptr(), skip.data_ptr(),
-                            out.data_ptr(), n, _stream(p))
+                            out.data_ptr(), n, _device.stream(p))
     _launch("te_full_add", rc)
     return out
 
@@ -359,14 +346,15 @@ def te_running_sum(curve: CurveSpec, pts: torch.Tensor
     if pts.dim() != 4 or pts.shape[1] < 1:
         raise ValueError("pts: expected (L, S >= 1, 4, nw), got "
                          f"{tuple(pts.shape)}")
-    if not _on_card(pts):
+    if not _device.on_card(pts):
         return te_running_sum_plain(curve, pts)
     lanes, steps = pts.shape[:2]
     t_out = torch.empty_like(pts[:, 0])
     u_out = torch.empty_like(t_out)
     rc = _lib().te_running_sum(device_params(curve, pts.device).data_ptr(),
                                pts.data_ptr(), t_out.data_ptr(),
-                               u_out.data_ptr(), lanes, steps, _stream(pts))
+                               u_out.data_ptr(), lanes, steps,
+                               _device.stream(pts))
     _launch("te_running_sum", rc)
     return t_out, u_out
 
@@ -382,6 +370,163 @@ def te_running_sum_plain(curve: CurveSpec, pts: torch.Tensor
 
 
 # ---------------------------------------------------------------------------
+# te_tree_sum
+# ---------------------------------------------------------------------------
+
+# log2 of the slots a block of te_tree_sum's first pass sums
+# (TREE_SEG_LOG of csrc/msm_te.cu, which checks it)
+TREE_SEG_LOG = 6
+
+
+def tree_bits(k: int, first: int) -> int:
+    """How many bit sums weights first .. first + k - 1 have."""
+    return max(1, (first + k - 1).bit_length())
+
+
+def tree_layout(k: int, first: int | None) -> tuple[int, int, int]:
+    """te_tree_sum's segments for k members at weight offset `first`
+    (None: roots only): (segments, their count padded to a power of two,
+    components a segment passes on: the root, and with bits the partials
+    of bits 0 .. min(TREE_SEG_LOG, n_bits) - 1)."""
+    off = first or 0
+    n_seg = -(-(off + k) >> TREE_SEG_LOG)
+    n_comp = (1 if first is None
+              else 1 + min(TREE_SEG_LOG, tree_bits(k, off)))
+    return n_seg, 1 << (n_seg - 1).bit_length(), n_comp
+
+
+def te_tree_sum(curve: CurveSpec, pts: torch.Tensor, first: int | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Row sums of pts (R, K, 4, nw), (R, 4, nw); with a weight offset
+    `first`, also the bit sums (n_bits, R, 4, nw): S_j[r] = the sum of the
+    pts[r, m] whose weight first + m has bit j set, the identity where
+    none has (n_bits = `tree_bits(K, first)`), else None.  The order of
+    the adds is `te_tree_sum_plain`'s."""
+    _check("pts", pts, _pt_tail(curve))
+    if pts.dim() != 4 or pts.shape[1] < 1:
+        raise ValueError("pts: expected (R, K >= 1, 4, nw), got "
+                         f"{tuple(pts.shape)}")
+    if first is not None and first < 0:
+        raise ValueError(f"first: expected a weight offset >= 0, got {first}")
+    if not _device.on_card(pts):
+        return te_tree_sum_plain(curve, pts, first)
+    rows, k = pts.shape[:2]
+    off = first or 0
+    n_bits = tree_bits(k, off)
+    _, n_pow, n_comp = tree_layout(k, first)
+    sums = torch.empty_like(pts[:, 0])
+    bits = (None if first is None else
+            torch.empty((n_bits, *sums.shape), dtype=torch.int32,
+                        device=pts.device))
+    seg = torch.empty((rows, n_comp, n_pow, *pts.shape[-2:]),
+                      dtype=torch.int32, device=pts.device)
+    flags = torch.empty((rows, n_comp, n_pow), dtype=torch.int32,
+                        device=pts.device)
+    rc = _lib().te_tree_sum(
+        device_params(curve, pts.device).data_ptr(), pts.data_ptr(),
+        seg.data_ptr(), flags.data_ptr(), sums.data_ptr(),
+        None if bits is None else bits.data_ptr(), rows, k, off, n_bits,
+        TREE_SEG_LOG, _device.stream(pts))
+    _launch("te_tree_sum", rc)
+    return sums, bits
+
+
+def _tree_upsweep(curve: CurveSpec, *groups: tuple) -> None:
+    """The in-place up-sweep of each group (x, present, bits): x (rows, n,
+    4, nw), n a power of two and the same for every group, present (rows,
+    n) bool.  At step t the level-t nodes pair up, L = 2j 2^t, R = L +
+    2^t, and x[L] += x[R]; with `bits` also x[L + 2^b] += x[R + 2^b] for b
+    < t.  An absent right leaves the left, an absent left takes the right.
+    Afterwards x[0] is the sum and x[2^b] the sum of the positions with b
+    trailing zeros.  Only pairs with both sides present are added, those
+    of all groups in one `te.add` a step."""
+    n = groups[0][0].shape[1]
+    for t in range(n.bit_length() - 1):
+        steps = []
+        for x, present, bits in groups:
+            offs = [0] + ([1 << b for b in range(t)] if bits else [])
+            left = torch.arange(0, n, 2 << t, device=x.device)
+            li = (left[:, None]
+                  + torch.tensor(offs, device=x.device)).reshape(-1)
+            ri = li + (1 << t)
+            a, b = x[:, li], x[:, ri]
+            pl, pr = present[:, li], present[:, ri]
+            both = pl & pr
+            steps.append((x, present, li, a, b, pl | pr, both,
+                          torch.where(pr[..., None, None], b, a)))
+        lhs = torch.cat([st[3][st[6]] for st in steps])
+        if lhs.shape[0]:
+            rhs = torch.cat([st[4][st[6]] for st in steps])
+            s = te.pack(te.add(curve, te.unpack(lhs), te.unpack(rhs)))
+            parts = s.split([int(st[6].sum()) for st in steps])
+            for st, part in zip(steps, parts):
+                st[7][st[6]] = part
+        for x, present, li, _, _, p, _, new in steps:
+            x[:, li] = new
+            present[:, li] = p
+
+
+def te_tree_sum_plain(curve: CurveSpec, pts: torch.Tensor,
+                      first: int | None = None
+                      ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The kernel's order: member m of a row in slot off + m (off = first,
+    or 0), the slots cut into segments of 2^TREE_SEG_LOG (absent slots
+    before and after); `_tree_upsweep` over each segment (with bits when
+    `first` is given), whose components are the root x[0] and the bit-b
+    partials x[2^b]; then, per row, `_tree_upsweep` over the segments'
+    roots (with bits: the bits above the segment, at positions 2^b) and
+    apart over each bit's partials (no bits), the segments padded with
+    absent ones to a power of two."""
+    rows, k = pts.shape[:2]
+    off = first or 0
+    with_bits = first is not None
+    n_bits = tree_bits(k, off)
+    seg = 1 << TREE_SEG_LOG
+    n_seg, n_pow, n_comp = tree_layout(k, first)
+    x = torch.zeros((rows, n_seg * seg, *pts.shape[-2:]), dtype=pts.dtype,
+                    device=pts.device)
+    x[:, off:off + k] = pts
+    present = torch.zeros(x.shape[:2], dtype=torch.bool, device=pts.device)
+    present[:, off:off + k] = True
+    x = x.reshape(rows * n_seg, seg, *pts.shape[-2:])
+    present = present.reshape(rows * n_seg, seg)
+    _tree_upsweep(curve, (x, present, with_bits))
+    pos = [0] + [1 << b for b in range(n_comp - 1)]
+    # (rows, n_comp, n_pow): component c of segment s at [:, c, s]
+    y = torch.zeros((rows, n_comp, n_pow, *pts.shape[-2:]), dtype=pts.dtype,
+                    device=pts.device)
+    yp = torch.zeros((rows, n_comp, n_pow), dtype=torch.bool,
+                     device=pts.device)
+    y[:, :, :n_seg] = x[:, pos].reshape(rows, n_seg, n_comp,
+                                        *pts.shape[-2:]).transpose(1, 2)
+    yp[:, :, :n_seg] = present[:, pos].reshape(rows, n_seg,
+                                               n_comp).transpose(1, 2)
+    roots, roots_p = y[:, 0].clone(), yp[:, 0].clone()
+    if not with_bits:
+        _tree_upsweep(curve, (roots, roots_p, False))
+        return roots[:, 0], None
+    parts = y[:, 1:].reshape(rows * (n_comp - 1), n_pow, *pts.shape[-2:])
+    parts_p = yp[:, 1:].reshape(rows * (n_comp - 1), n_pow)
+    _tree_upsweep(curve, (roots, roots_p, True), (parts, parts_p, False))
+    sums = roots[:, 0]
+    parts = parts[:, 0].reshape(rows, n_comp - 1, *pts.shape[-2:])
+    parts_p = parts_p[:, 0].reshape(rows, n_comp - 1)
+    ident = te.pack(te.identity(curve, (), pts.device))
+    out = []
+    for j in range(n_bits):
+        if j < TREE_SEG_LOG:
+            v, p = parts[:, j], parts_p[:, j]
+        elif (1 << (j - TREE_SEG_LOG)) < n_pow:
+            v, p = (roots[:, 1 << (j - TREE_SEG_LOG)],
+                    roots_p[:, 1 << (j - TREE_SEG_LOG)])
+        else:
+            v, p = ident.expand(rows, *ident.shape), torch.zeros(
+                rows, dtype=torch.bool, device=pts.device)
+        out.append(torch.where(p[:, None, None], v, ident))
+    return sums, torch.stack(out)
+
+
+# ---------------------------------------------------------------------------
 # te_combine
 # ---------------------------------------------------------------------------
 
@@ -394,13 +539,13 @@ def te_combine(curve: CurveSpec, window_sums: torch.Tensor, c: int
     if window_sums.dim() != 4 or window_sums.shape[0] < 1:
         raise ValueError("window_sums: expected (S >= 1, L, 4, nw), got "
                          f"{tuple(window_sums.shape)}")
-    if not _on_card(window_sums):
+    if not _device.on_card(window_sums):
         return te_combine_plain(curve, window_sums, c)
     n_steps, lanes = window_sums.shape[:2]
     out = torch.empty_like(window_sums[0])
     rc = _lib().te_combine(device_params(curve, out.device).data_ptr(),
                            window_sums.data_ptr(), out.data_ptr(), n_steps,
-                           lanes, c, _stream(out))
+                           lanes, c, _device.stream(out))
     _launch("te_combine", rc)
     return out
 
@@ -446,7 +591,7 @@ def sw_gather_accumulate(curve: CurveSpec, px: torch.Tensor,
     _check("sign", sign, tuple(perm.shape))
     _check("starts", starts, (n_win, nbe), torch.int64)
     _check("counts", counts, (n_win, nbe), torch.int64)
-    if not _on_card(px, py, perm, sign, starts, counts):
+    if not _device.on_card(px, py, perm, sign, starts, counts):
         return sw_gather_accumulate_plain(curve, px, py, perm, sign, starts,
                                           counts)
     if px.data_ptr() % 16 or py.data_ptr() % 16:
@@ -458,7 +603,7 @@ def sw_gather_accumulate(curve: CurveSpec, px: torch.Tensor,
         py.data_ptr(),
         perm.data_ptr(), sign.data_ptr(), starts.data_ptr(),
         counts.data_ptr(), out.data_ptr(), px.shape[0], nbe, n_win * nbe,
-        _stream(px))
+        _device.stream(px))
     _launch("sw_gather_accumulate", rc)
     return out
 
@@ -508,11 +653,12 @@ def sw_full_add(curve: CurveSpec, acc: torch.Tensor, q: torch.Tensor,
     _check("acc", acc, (3, fp.n_words(curve.field)))
     _check("q", q, tuple(acc.shape))
     _check("skip", skip, tuple(acc.shape[:-2]))
-    if not _on_card(acc, q, skip):
+    if not _device.on_card(acc, q, skip):
         return sw_full_add_plain(curve, acc, q, skip)
     rc = _sw_lib().sw_full_add(sw_params(curve, acc.device).data_ptr(),
                                _sw_b3(curve), acc.data_ptr(), q.data_ptr(),
-                               skip.data_ptr(), skip.numel(), _stream(acc))
+                               skip.data_ptr(), skip.numel(),
+                               _device.stream(acc))
     _launch("sw_full_add", rc)
     return acc
 
@@ -538,7 +684,7 @@ def sw_running_sum(curve: CurveSpec, pts: torch.Tensor
     if pts.dim() != 4 or pts.shape[1] < 1:
         raise ValueError("pts: expected (L, S >= 1, 3, nw), got "
                          f"{tuple(pts.shape)}")
-    if not _on_card(pts):
+    if not _device.on_card(pts):
         return sw_running_sum_plain(curve, pts)
     lanes, steps = pts.shape[:2]
     t_out = torch.empty_like(pts[:, 0])
@@ -546,7 +692,7 @@ def sw_running_sum(curve: CurveSpec, pts: torch.Tensor
     rc = _sw_lib().sw_running_sum(sw_params(curve, pts.device).data_ptr(),
                                   _sw_b3(curve), pts.data_ptr(),
                                   t_out.data_ptr(), u_out.data_ptr(), lanes,
-                                  steps, _stream(pts))
+                                  steps, _device.stream(pts))
     _launch("sw_running_sum", rc)
     return t_out, u_out
 
@@ -575,14 +721,14 @@ def sw_combine(curve: CurveSpec, window_sums: torch.Tensor, c: int
     if window_sums.dim() != 4 or window_sums.shape[0] < 1:
         raise ValueError("window_sums: expected (S >= 1, L, 3, nw), got "
                          f"{tuple(window_sums.shape)}")
-    if not _on_card(window_sums):
+    if not _device.on_card(window_sums):
         return sw_combine_plain(curve, window_sums, c)
     n_steps, lanes = window_sums.shape[:2]
     out = torch.empty_like(window_sums[0])
     rc = _sw_lib().sw_combine(sw_params(curve, out.device).data_ptr(),
                               _sw_b3(curve), window_sums.data_ptr(),
                               out.data_ptr(), n_steps, lanes, c,
-                              _stream(out))
+                              _device.stream(out))
     _launch("sw_combine", rc)
     return out
 

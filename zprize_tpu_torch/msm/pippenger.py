@@ -27,7 +27,8 @@ The m = 1 TE route (`window_sums_m1`):
    permutation straight from the table (kernel `te_gather_accumulate`).
 
 Both then take sum_b b*B_b per window (triangle merge, or bit-decomposed
-below 1024 buckets; kernels `te_full_add` and `te_combine`), the window
+below 1024 buckets; kernels `te_running_sum`, `te_tree_sum` and
+`te_combine`), the window
 combine (kernel `te_combine`) and the exact TE->SW conversion of the
 single result on the host.
 

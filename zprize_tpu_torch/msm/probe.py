@@ -28,6 +28,7 @@ import torch
 
 from ..curve.spec import CurveSpec
 from ..field import fp
+from ..utils import device as _device
 from . import accum_kernel as ak
 
 KERNELS = ("imad_chain", "fq_mul_chain")
@@ -78,11 +79,11 @@ def imad_chain(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, k: int
         raise ValueError(f"x: expected (L,), got {tuple(x.shape)}")
     _check_chain(x, a, k)
     _check_chain(x, b, k)
-    if not ak._on_card(x, a, b):
+    if not _device.on_card(x, a, b):
         return imad_chain_plain(x, a, b, k)
     out = torch.empty_like(x)
     rc = _lib().imad_chain(x.data_ptr(), a.data_ptr(), b.data_ptr(),
-                           out.data_ptr(), x.shape[0], k, ak._stream(out))
+                           out.data_ptr(), x.shape[0], k, _device.stream(out))
     _launch("imad_chain", rc)
     return out
 
@@ -108,12 +109,12 @@ def fq_mul_chain(curve: CurveSpec, x: torch.Tensor, y: torch.Tensor, k: int
     if x.dim() != 2:
         raise ValueError(f"x: expected (L, nw), got {tuple(x.shape)}")
     _check_chain(x, y, k)
-    if not ak._on_card(x, y):
+    if not _device.on_card(x, y):
         return fq_mul_chain_plain(curve, x, y, k)
     out = torch.empty_like(x)
     rc = _lib().fq_mul_chain(ak.device_params(curve, out.device).data_ptr(),
                              x.data_ptr(), y.data_ptr(), out.data_ptr(),
-                             x.shape[0], k, ak._stream(out))
+                             x.shape[0], k, _device.stream(out))
     _launch("fq_mul_chain", rc)
     return out
 

@@ -19,8 +19,8 @@ import torch
 from ..curve import te
 from ..curve.spec import CurveSpec
 from ..field import fp
-from .accum_kernel import (te_combine, te_dbl_chain, te_full_add,
-                           te_running_sum)
+from .accum_kernel import (te_combine, te_dbl_chain, te_running_sum,
+                           te_tree_sum)
 
 
 # points per block of the m = 1 table build: the plain engine's
@@ -102,51 +102,29 @@ def triangle_split(n_win: int, n_buckets: int) -> tuple[int, int] | None:
     return c_lanes, n_buckets // c_lanes
 
 
-def _identity(curve: CurveSpec, device) -> torch.Tensor:
-    return te.pack(te.identity(curve, (), device))       # (4, nw)
-
-
-def _add(curve: CurveSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Lane-wise full add of two equal-shape point tensors."""
-    shape = a.shape
-    a2 = a.reshape(-1, *shape[-2:]).contiguous()
-    b2 = b.reshape(-1, *shape[-2:]).contiguous()
-    skip = torch.zeros(a2.shape[0], dtype=torch.int32, device=a.device)
-    return te_full_add(curve, a2, b2, skip).reshape(shape)
-
-
 def sum_axis(curve: CurveSpec, pts: torch.Tensor, axis: int) -> torch.Tensor:
-    """Tree-reduce packed points along `axis` (log-depth full adds)."""
-    pts = pts.movedim(axis, 0)
-    n = pts.shape[0]
-    while n > 1:
-        half = (n + 1) // 2
-        merged = _add(curve, pts[:n - half], pts[half:])
-        if half > n - half:  # odd: the middle row rides along unmerged
-            merged = torch.cat([merged, pts[n - half:half]])
-        pts, n = merged, half
-    return pts[0]
+    """Sum packed points along `axis`: one `te_tree_sum` launch over every
+    row of the other axes."""
+    rows = pts.movedim(axis, -3)
+    lead = rows.shape[:-3]
+    sums, _ = te_tree_sum(curve, rows.reshape(-1, *rows.shape[-3:])
+                          .contiguous())
+    return sums.reshape(*lead, *sums.shape[-2:])
 
 
 def _bit_sums(curve: CurveSpec, pts: torch.Tensor, first: int
               ) -> torch.Tensor:
     """pts (W, B, 4, nw) with weights first..first+B-1 -> the per-bit sums
     S_j = sum over the b whose weight has bit j of pts[:, b], as
-    (n_bits, W, 4, nw)."""
-    n_bits = max(1, (first + pts.shape[1] - 1).bit_length())
-    ids = torch.arange(first, first + pts.shape[1], device=pts.device)
-    bits = torch.arange(n_bits, device=pts.device)
-    mask = ((ids[None, :] >> bits[:, None]) & 1).bool()  # (n_bits, B)
-    expanded = torch.where(mask[None, :, :, None, None], pts[:, None],
-                           _identity(curve, pts.device))
-    return sum_axis(curve, expanded, 2).transpose(0, 1).contiguous()
+    (n_bits, W, 4, nw): one `te_tree_sum` launch."""
+    return te_tree_sum(curve, pts.contiguous(), first)[1]
 
 
 def merge_buckets_te(curve: CurveSpec, c: int, bucket_sums: torch.Tensor
                      ) -> torch.Tensor:
     """sum_b b*B_b per window by bit decomposition: bucket_sums
-    (W, nbe, 4, nw) -> (W, 4, nw).  The per-bit sums are wide full-add
-    trees; the fold sum_j 2^j S_j is a c=1 combine."""
+    (W, nbe, 4, nw) -> (W, 4, nw).  The per-bit sums come from one
+    `te_tree_sum` launch; the fold sum_j 2^j S_j is a c=1 combine."""
     return te_combine(curve, _bit_sums(curve, bucket_sums, 1), 1)
 
 

@@ -32,7 +32,7 @@ import functools
 import torch
 
 from ..field.spec import GOLDILOCKS
-from ..utils.device import resolve_device
+from ..utils import device as _device
 from . import gl_ops as G
 from .domain import bitrev_perm, gl_powers, power_ints, primitive_root
 
@@ -138,11 +138,9 @@ def gl_ntt(x: torch.Tensor, log_n: int, inverse: bool = False,
     2^log_n * inner), element (k1, col) at [j2, k1 * inner + col % inner]:
     the transpose (B, 2^log_n) when inner is 1."""
     _check(x, log_n, step_log, inner, transpose_out)
-    if x.device.type == "cpu":
+    if not _device.on_card(x):
         return gl_ntt_plain(x, log_n, inverse, step_log, inner, scale,
                             transpose_out)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
     n, b = x.shape
     out = torch.empty((b // inner, n * inner) if transpose_out else (n, b),
                       dtype=x.dtype, device=x.device)
@@ -156,7 +154,7 @@ def gl_ntt(x: torch.Tensor, log_n: int, inverse: bool = False,
                        None if tw_b is None else tw_b.data_ptr(),
                        step_log, split, inner, 0 if scale is None else scale,
                        b, log_n, int(transpose_out),
-                       torch.cuda.current_stream(x.device).cuda_stream)
+                       _device.stream(x))
     launches["gl_ntt"] += 1
     if rc != 0:
         msg = _lib().ntt_gl_error_string(rc).decode()
@@ -247,7 +245,7 @@ def _prepare(x: torch.Tensor, n: int, dims: int, device) -> torch.Tensor:
     if x.dim() != dims or x.shape[0] != n:
         raise ValueError(f"x: expected {dims} dims with {n} rows, got "
                          f"{tuple(x.shape)}")
-    return x.to(resolve_device(device)).contiguous()
+    return x.to(_device.resolve_device(device)).contiguous()
 
 
 def ntt_packed(log_n: int, x: torch.Tensor, inverse: bool = False,
