@@ -129,10 +129,37 @@ In order, each phase raising on failure (so the exit code is non-zero):
    too-small cap_total on equal scalars raising "occupancy"; one profiled
    2^18 MSM; and the four kernels' rows at the path's shapes.
 
+10. (run after 7, so that no earlier profile is disturbed) drives
+   Marlin batch verification at the benchmark's sizes
+   (`BENCH_METRIC=verify` of the reference, bench.py:341-467): the
+   100-constraint circuit (c = a·b public, filler constraints),
+   `setup_test_srs(max(3k, 2n) + 8, seed=11)` and `indexer.index` on the
+   card (its nine commitments on the collapsed TE route), `prove_batch`
+   of 4 witnesses from random.Random(0xC0FFEE) (each proof verified), the
+   tampered pool (g_1's y negated, `main.rs:182`), three groups of 10,
+   100 and 20 proofs with faults at 1/5, 1/50 and 1/10, a warm cycle and
+   a 10 s window of `verify_group` rounds on host ints; every verdict must
+   be exact.  Prints marlin_verify_rounds_per_10s, the setup and proving
+   seconds, and each kernel's launches in the prove_batch of 4, which
+   must hold sw_gather_accumulate and fr_ntt;
+11. drives Proof-of-Succinct-Work mining (`BENCH_METRIC=posw`,
+   bench.py:293-339): `posw.setup()` on the card (the PoSW circuit's n =
+   512, k = 1024), a warm `mine_batch` of 8 nonces at target p whose
+   solution must pass `verify_work` and fail it under a target its hash
+   does not meet, then 3 timed batches of 8 (posw_proofs_per_20s =
+   proofs / seconds x 20; each batch's launches read, each must hold
+   sw_gather_accumulate and fr_ntt, and each batch's solution passes
+   `verify_work` after the clock stops), and one profiled
+   prove_batch(8): device time by port kernel and torch ops, and the
+   idle share.  Phases 10 and 11 set every counter to 0, the probes'
+   too, before each part they count.
+
 Prints one JSON line for the 2^18 MSM path, one for the 2^26 path, one
 for the PLONK path, one for the Goldilocks NTT, one for the SW route, one
-{"kernels": [...]} line, the total time, the nvidia-smi line, and last
-{"ok": true, "device": {...}}.
+for Marlin verification, one for PoSW, one {"kernels": [...]} line (each
+row also with its launches in phase 10's prove_batch of 4 and in a PoSW
+batch of 8, the mean of the timed batches), the total time, the nvidia-smi line, and last {"ok": true,
+"device": {...}}.
 """
 
 import json
@@ -199,6 +226,10 @@ MULMOD_K = (1024, 8192)
 MULMOD_IMAD_DEPTH = 2
 PLONK_PROOFS, PLONK_HEIGHT = 16, 8         # bench.py's plonk workload
 PLONK_TIMED = 2
+VERIFY_CONSTRAINTS = 100                   # bench.py's verify circuit
+VERIFY_WINDOW_S = 10.0                     # BENCH_VERIFY_WINDOW_S
+POSW_BATCH = 8                             # BENCH_POSW_BATCH
+POSW_TIMED = 3                             # timed batches (bench: 20 s)
 # the MSM kernels of the collapsed route (the 2^18 MSM and the PLONK
 # commits); the m = 1 route runs te_gather_accumulate instead of the
 # first two
@@ -1050,34 +1081,47 @@ def port_launches():
     return {**ak.launches, **fr_kernel.launches, **gl_kernel.launches}
 
 
-def profile_call(label, fn, attempts=3):
+def device_kernels(prof):
+    """(ms, launches, name) of every device kernel, copy and memset in a
+    finished torch.profiler trace, summed by name.  Device-side events
+    only: an aten op's own entry would count its kernels' time a second
+    time."""
+    from torch.autograd import DeviceType
+    sums = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            ms, n = sums.get(e.name(), (0.0, 0))
+            sums[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    return [(ms, n, name) for name, (ms, n) in sums.items()]
+
+
+def profile_call(label, fn, attempts=3, host_ops=True):
     """One call of fn under torch.profiler (after one unprofiled call):
     device time by kernel and the device busy share of the call's wall
     time.  The trace can miss device events (seen late in a run, after
     the large profiles: none, or half, of a short window's kernels), so
     the port's kernels in the trace are held against their launch counts
     in the same window; a window that falls short is profiled again, up
-    to `attempts` times, and the result says whether it was complete."""
-    from torch.autograd import DeviceType
+    to `attempts` times, and the result says whether it was complete.
+    With `host_ops` False only the device is traced (the host ops of a
+    call of some 10^5 torch ops, a PoSW batch, stretch its wall time).
+    The device events are summed by kernel name from the profiler's raw
+    events: torch's own summary (`key_averages`) first builds its event
+    tree, some 45 s for a PoSW batch's 2 x 10^5 device events."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     for attempt in range(1, attempts + 1):
         before = port_launches()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU] * host_ops
+                     + [ProfilerActivity.CUDA]) as prof:
             t0 = time.time()
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.time() - t0) * 1e3
         launched = {k: v - before[k] for k, v in port_launches().items()
                     if v > before[k]}
-        # device-side events only: an aten op's own entry would count its
-        # kernels' time a second time
-        by_kernel = [(e.self_device_time_total / 1e3, e.count, e.key)
-                     for e in prof.key_averages()
-                     if e.device_type == DeviceType.CUDA
-                     and e.self_device_time_total > 0]
+        by_kernel = device_kernels(prof)
         # a wrapper's launch runs at least one kernel of its symbols
         traced = {name: sum(n for _, n, k in by_kernel
                             if any(s in k for s in KERNEL_SYMBOLS[name]))
@@ -1828,6 +1872,220 @@ def plonk_path(dev, n_proofs=PLONK_PROOFS, height=PLONK_HEIGHT):
     return pk, wires, public, path_launches, summary
 
 
+def verify_circuit(fr, n_constraints):
+    """bench.py's verify circuit (`main.rs:73-116`): c = a·b public, and
+    filler constraints a·b up to n_constraints."""
+    from zprize_tpu_torch.marlin.r1cs import R1CSBuilder
+    rb = R1CSBuilder(fr, num_public=1)
+    a_v = rb.new_witness()
+    b_v = rb.new_witness()
+    c_v = rb.mul(a_v, b_v)
+    for _ in range(n_constraints - 2):
+        rb.mul(a_v, b_v)
+    rb.enforce_equal(c_v, rb.public(0))
+    r1 = rb.build()
+
+    def witness(a_i, b_i):
+        c_i = a_i * b_i % fr.p
+        return [1, c_i, a_i % fr.p, b_i % fr.p] + [c_i] * (n_constraints - 1)
+
+    return r1, witness
+
+
+def reset_all_launches():
+    """Set every port counter to 0: the path kernels' and the probes'."""
+    from zprize_tpu_torch.msm import accum_kernel as ak
+    from zprize_tpu_torch.msm import probe
+    from zprize_tpu_torch.ntt import fr_kernel, gl_kernel
+    for counters in (ak, fr_kernel, gl_kernel, probe):
+        counters.reset_launches()
+
+
+def all_launches():
+    """Every port counter's launch count since reset_all_launches()."""
+    from zprize_tpu_torch.msm import probe
+    return {**port_launches(), **probe.launches}
+
+
+def verify_path(dev):
+    """Phase 10: bench.py's verify metric (`bench_verify`, bench.py:341-467)
+    through the port: the 100-constraint circuit, the test SRS and the
+    index on the card, prove_batch of 4 witnesses (each proof verified),
+    the tampered pool (g_1's y negated, `main.rs:182`), three groups of
+    10, 100 and 20 proofs with faults at 1/5, 1/50 and 1/10, a warm cycle
+    and a VERIFY_WINDOW_S window of `verify_group` rounds, every verdict
+    exact.  The verifier runs on host ints."""
+    import copy
+    from zprize_tpu_torch.curve.spec import BLS12_377_G1
+    from zprize_tpu_torch.marlin import ahp, indexer
+    from zprize_tpu_torch.pcs import kzg
+    curve = BLS12_377_G1
+    fr = curve.scalar
+    p = fr.p
+    r1, witness = verify_circuit(fr, VERIFY_CONSTRAINTS)
+    rng = random.Random(0xC0FFEE)
+    reset_all_launches()
+    t0 = time.time()
+    n = 1 << max(r1.num_constraints, r1.num_vars, 2).bit_length()
+    k = 1 << max(len(r1.a), len(r1.b), len(r1.c), 2).bit_length()
+    srs = kzg.setup_test_srs(curve, max(3 * k, 2 * n) + 8, seed=11,
+                             device=dev)
+    pk = indexer.index(curve, r1, srs, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    setup_launches = all_launches()
+    log(f"verify: SRS of {srs.size} powers and index: {setup_s:.3f} s; "
+        f"{r1.num_constraints} constraints, n = {1 << pk.log_n}, "
+        f"k = {1 << pk.log_k}; launches {setup_launches}")
+    zs = [witness(rng.randrange(1, p), rng.randrange(1, p)) for _ in range(4)]
+    for z in zs:
+        if not r1.is_satisfied(z):
+            raise AssertionError("verify circuit: witness unsatisfied")
+    reset_all_launches()
+    t0 = time.time()
+    proofs = ahp.prove_batch(pk, zs, device=dev)
+    prove_s = time.time() - t0
+    launches = all_launches()
+    log(f"proved 4 instances in one prove_batch: {prove_s:.3f} s, "
+        f"launches {launches}")
+    for name in ("sw_gather_accumulate", "fr_ntt"):
+        if launches[name] == 0:
+            raise AssertionError(f"prove_batch launched no {name}")
+    pool = [(z[:r1.num_public], pr) for z, pr in zip(zs, proofs)]
+    for pub, pr in pool:
+        if not ahp.verify(pk.vk, srs, pub, pr):
+            raise AssertionError("a proof of the verify circuit failed")
+
+    def tampered(proof):
+        bad = copy.deepcopy(proof)
+        x, y = bad.comms["g_1"]
+        bad.comms["g_1"] = (x, (-y) % curve.field.p)
+        return bad
+
+    bad_pool = [(pub, tampered(pr)) for pub, pr in pool]
+
+    def build_group(count, fault_denom):
+        group, faulty = [], []
+        for _ in range(count):
+            is_bad = rng.randrange(fault_denom) == 0
+            src = bad_pool if is_bad else pool
+            group.append(src[rng.randrange(len(src))])
+            faulty.append(is_bad)
+        return group, faulty
+
+    groups = [build_group(10, 5), build_group(100, 50), build_group(20, 10)]
+    vrng = random.Random(7)
+
+    def round_ok(g, f):
+        verdicts = ahp.verify_group(pk.vk, srs, g, rng=vrng)
+        if verdicts != [not x for x in f]:
+            raise AssertionError("verify_group: a verdict is wrong")
+
+    t0 = time.time()
+    for g, f in groups:
+        round_ok(g, f)
+    warm_s = time.time() - t0
+    rounds = 0
+    t0 = time.time()
+    while True:
+        round_ok(*groups[rounds % 3])
+        rounds += 1
+        if time.time() - t0 > VERIFY_WINDOW_S:
+            break
+    dt = time.time() - t0
+    rate = rounds / dt * 10.0
+    log(f"verify: {rounds} rounds in {dt:.3f} s -> {rate:.4f} rounds/10 s; "
+        f"groups of {[len(g) for g, _ in groups]} proofs with "
+        f"{[sum(f) for _, f in groups]} faulty, every verdict exact")
+    return launches, {
+        "metric": "marlin_verify_rounds_per_10s", "value": rate,
+        "unit": "rounds/10s", "rounds": rounds, "window_s": dt,
+        "constraints": r1.num_constraints, "n": 1 << pk.log_n,
+        "k": 1 << pk.log_k, "srs_size": srs.size, "setup_s": setup_s,
+        "prove_batch_4_s": prove_s, "warm_cycle_s": warm_s,
+        "groups": [len(g) for g, _ in groups],
+        "faulty": [sum(f) for _, f in groups],
+        "launches_setup": setup_launches,
+        "launches_prove_batch_4": launches}
+
+
+def posw_path(dev):
+    """Phase 11: bench.py's posw metric (`bench_posw`, bench.py:293-339)
+    through the port: `posw.setup()` on the card, a warm mine_batch of
+    POSW_BATCH nonces at target p whose solution must pass verify_work and
+    fail it under a tightened target, POSW_TIMED timed batches (their
+    launches read batch by batch, each batch's solution verified after
+    the clock stops), and one profiled prove_batch of POSW_BATCH."""
+    from zprize_tpu_torch.field.spec import BLS12_377_FR
+    from zprize_tpu_torch.marlin import ahp
+    from zprize_tpu_torch.posw import posw
+    p = BLS12_377_FR.p
+    reset_all_launches()
+    t0 = time.time()
+    keys = posw.setup(device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    setup_launches = all_launches()
+    log(f"posw keygen: {setup_s:.3f} s; n = {1 << keys.pk.log_n}, "
+        f"k = {1 << keys.pk.log_k}, SRS of {keys.pk.srs.size} powers; "
+        f"launches {setup_launches}")
+    t0 = time.time()
+    sol = posw.mine_batch(keys, header=42, target=p, start_nonce=1,
+                          max_nonces=POSW_BATCH, batch=POSW_BATCH)
+    warm_s = time.time() - t0
+    if sol is None or not posw.verify_work(keys, keys.pk.srs, sol, p):
+        raise AssertionError("the warm PoSW solution did not verify")
+    d = posw.proof_difficulty(keys, sol["proof"])
+    if posw.verify_work(keys, keys.pk.srs, sol, d):
+        raise AssertionError("verify_work passed under a target the "
+                             "proof's hash does not meet")
+    log(f"warm batch of {POSW_BATCH}: {warm_s:.3f} s, solution verified, "
+        "refused under the tightened target")
+    nonce, proofs, times, sols, per_batch = 1 + POSW_BATCH, 0, [], [], []
+    for _ in range(POSW_TIMED):
+        reset_all_launches()
+        t1 = time.time()
+        sol = posw.mine_batch(keys, header=42, target=p, start_nonce=nonce,
+                              max_nonces=POSW_BATCH, batch=POSW_BATCH)
+        times.append(time.time() - t1)
+        per_batch.append(all_launches())
+        if sol is None:
+            raise AssertionError("target p refused a proof")
+        sols.append(sol)
+        nonce += POSW_BATCH
+        proofs += POSW_BATCH
+    dt = sum(times)
+    rate = proofs / dt * 20.0
+    for sol in sols:
+        if not posw.verify_work(keys, keys.pk.srs, sol, p):
+            raise AssertionError("a timed batch's solution did not verify")
+    for counts in per_batch:
+        for name in ("sw_gather_accumulate", "fr_ntt"):
+            if counts[name] == 0:
+                raise AssertionError(f"a timed batch launched no {name}")
+    total = {k: sum(b[k] for b in per_batch) for k in per_batch[0]}
+    launches = {k: v // POSW_TIMED if v % POSW_TIMED == 0
+                else v / POSW_TIMED for k, v in total.items()}
+    log(f"posw: {proofs} proofs in {dt:.3f} s -> {rate:.4f} proofs/20 s "
+        f"(batches {times}); each batch's solution verified; launches "
+        f"per batch {launches}")
+    zs = [posw._witness(keys.circuit, 42, 1000 + i)
+          for i in range(POSW_BATCH)]
+    prof = profile_call(f"PoSW prove_batch({POSW_BATCH})",
+                        lambda: ahp.prove_batch(keys.pk, zs, device=dev),
+                        host_ops=False)
+    return launches, {
+        "metric": "posw_proofs_per_20s", "value": rate,
+        "unit": "proofs/20s", "proofs": proofs, "seconds": dt,
+        "batch_s": times, "batch": POSW_BATCH, "n": 1 << keys.pk.log_n,
+        "k": 1 << keys.pk.log_k, "srs_size": keys.pk.srs.size,
+        "constraints": keys.pk.r1cs.num_constraints,
+        "setup_s": setup_s, "warm_batch_s": warm_s,
+        "launches_setup": setup_launches,
+        "launches_timed_batches": per_batch,
+        "launches_per_batch": launches, "profile": prof}
+
+
 def profile_ntt(dev):
     """Phase 3b: one profiled 2^18 forward fr_ntt (the PLONK quotient's
     size), which must run one kernel a pass of `fr_kernel.plan` (two: two
@@ -2218,17 +2476,34 @@ def main():
                                     plonk_launches["te_full_add"], dev))
     kernels.append(gl_kernel_row)
     kernels.extend(sw_kernel_rows)
+    del pk, wires
+    torch.cuda.empty_cache()
+    # phases 10 and 11 reset every counter, the probes' too: read the
+    # probes' count over phases 3d to 7 first
     for row in probe_rows:
         row["launches"] = probe.launches[row["name"]]
-        if row["launches"]:
+    t0 = time.time()
+    verify_launches, verify = verify_path(dev)
+    log(f"phase 10: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    posw_launches, posw_summary = posw_path(dev)
+    log(f"phase 11: {time.time() - t0:.1f} s")
+    for row in probe_rows:
+        if (row["launches"] or verify_launches[row["name"]]
+                or posw_launches[row["name"]]):
             raise AssertionError(f"{row['name']}, a probe, was launched on "
                                  "a path")
     kernels.extend(probe_rows)
+    for row in kernels:
+        row["launches_marlin_prove_batch_4"] = verify_launches[row["name"]]
+        row["launches_posw_batch_8"] = posw_launches[row["name"]]
     print(json.dumps(summary), flush=True)
     print(json.dumps(prize), flush=True)
     print(json.dumps(plonk), flush=True)
     print(json.dumps(goldilocks), flush=True)
     print(json.dumps(sw_msm), flush=True)
+    print(json.dumps(verify), flush=True)
+    print(json.dumps(posw_summary), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"chip_smoke total: {time.time() - start_s:.1f} s")
     print(card, flush=True)

@@ -24,6 +24,7 @@ from torch_memory import release_memory  # noqa: F401
 # runs several workers side by side
 torch.set_num_threads(1)
 
+
 FIELDS = {"fq377": (spec.BLS12_377_FQ, ref_spec.BLS12_377_FQ),
           "fr377": (spec.BLS12_377_FR, ref_spec.BLS12_377_FR)}
 N = 48
@@ -147,3 +148,21 @@ def test_field_specs_are_copies():
     for ours, theirs in zip(spec.ALL_SPECS, ref_spec.ALL_SPECS):
         assert (ours.name, ours.p, ours.generator, ours.n_limbs) == (
             theirs.name, theirs.p, theirs.generator, theirs.n_limbs)
+
+
+@pytest.mark.parametrize("name", sorted(FIELDS))
+@pytest.mark.parametrize("op", ["mul", "add", "sub"])
+def test_small_cpu_batches_on_ints_equal_the_digit_engine(name, op):
+    """Inside `fp.python_ints` a CPU op runs on python ints and gives the
+    digit engine's words, broadcasting included; outside it the digit
+    engine runs."""
+    f = FIELDS[name][0]
+    a = fp.from_ints(f, _values(f, N, 5)).reshape(6, 8, -1)
+    b = fp.from_ints(f, _values(f, 8, 6))
+    assert fp._host_op(f, a, b, lambda x, y: 0) is None
+    want = getattr(fp, op)(f, a, b)
+    with fp.python_ints():
+        assert fp._host_op(f, a, b, lambda x, y: 0) is not None
+        got = getattr(fp, op)(f, a, b)
+    assert torch.equal(got, want)
+    assert fp._host_op(f, a, b, lambda x, y: 0) is None

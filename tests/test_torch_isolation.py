@@ -1,8 +1,9 @@
 """The port stands alone: every module imports with jax blocked, no source
 names jax or the reference package, and without a card the default-device
 entry points (the MSM's on both routes, the test SRS's on both curves, the
-NTT domain's, the Poseidon sponge's, the Goldilocks NTT's and the
-converters') and chip_smoke.py refuse to run."""
+NTT domain's, the Poseidon sponge's, the Goldilocks NTT's, Marlin's index
+and prover, PoSW's setup, the SRS loader and the converters') and
+chip_smoke.py refuse to run."""
 
 import pathlib
 import shutil
@@ -18,10 +19,12 @@ from zprize_tpu_torch import convert
 from zprize_tpu_torch.curve.spec import BLS12_377_G1, BLS12_381_G1
 from zprize_tpu_torch.hash import poseidon
 from zprize_tpu_torch.hash.grain import snarkvm_config
+from zprize_tpu_torch.marlin import ahp, indexer
 from zprize_tpu_torch.msm import api
 from zprize_tpu_torch.ntt import gl_kernel
 from zprize_tpu_torch.ntt.domain import Domain
-from zprize_tpu_torch.pcs import kzg
+from zprize_tpu_torch.pcs import kzg, storage
+from zprize_tpu_torch.posw import posw
 from zprize_tpu_torch.utils import device
 from torch_memory import release_memory  # noqa: F401
 
@@ -51,14 +54,16 @@ def test_every_module_imports_with_jax_blocked():
     ])
     r = _python(["-c", code], ROOT)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 41     # 31 modules, 10 subpackages
+    assert int(r.stdout.split()[-1]) >= 50     # 38 modules, 12 subpackages
 
 
 def test_sources_name_neither_jax_nor_the_reference_package():
     files = [p for p in PKG.rglob("*")
-             if p.suffix in (".py", ".cu", ".cuh") and "_build" not in p.parts]
+             if p.suffix in (".py", ".cu", ".cuh", ".cc")
+             and "_build" not in p.parts]
     files.append(ROOT / "chip_smoke.py")
-    assert len(files) >= 49     # 41 modules, 7 CUDA sources, chip_smoke
+    # 50 modules, 7 CUDA sources, the host lincomb source, chip_smoke
+    assert len(files) >= 59
     for path in files:
         text = path.read_text()
         assert "zprize_tpu." not in text, path
@@ -67,12 +72,27 @@ def test_sources_name_neither_jax_nor_the_reference_package():
 
 @pytest.mark.parametrize("entry", ["msm_init", "msm_init_bls12_381",
                                    "test_srs", "test_srs_bls12_381",
-                                   "domain", "sponge", "gl_ntt"])
-def test_default_device_entry_point_requires_a_card(entry):
+                                   "domain", "sponge", "gl_ntt",
+                                   "marlin_index", "marlin_prove_batch",
+                                   "posw_setup", "load_srs"])
+def test_default_device_entry_point_requires_a_card(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        if entry.startswith("msm_init"):
+        if entry == "marlin_index":
+            indexer.index(BLS12_377_G1, posw.build_circuit().r1cs,
+                          types.SimpleNamespace(device=torch.device("cpu")))
+        elif entry == "marlin_prove_batch":
+            ahp.prove_batch(types.SimpleNamespace(
+                device=torch.device("cpu")), [[1]])
+        elif entry == "posw_setup":
+            posw.setup()
+        elif entry == "load_srs":
+            path = tmp_path / "srs.npz"
+            np.savez_compressed(path, curve=BLS12_377_G1.name, g1_x=_PLANES,
+                                g1_y=_PLANES, g1_inf=[True, True])
+            storage.load_srs(str(path))
+        elif entry.startswith("msm_init"):
             curve = BLS12_381_G1 if entry.endswith("381") else BLS12_377_G1
             api.multi_scalar_mult_init(curve, [(curve.gen_x, curve.gen_y)])
         elif entry.startswith("test_srs"):
@@ -105,6 +125,8 @@ _CONVERTERS = {
         curve=BLS12_377_G1, g1_powers=types.SimpleNamespace(
             x=_PLANES, y=_PLANES, inf=[True, True]),
         h=None, tau_h=None, tau=None)),
+    "index": lambda: convert.index_from_reference(types.SimpleNamespace(
+        curve=BLS12_377_G1)),
 }
 
 

@@ -1,6 +1,7 @@
 """PyTorch + hand-written CUDA port of zprize_tpu for one NVIDIA H100.
 
-Layout mirrors the reference package (field/, curve/, msm/); csrc/ holds
-the CUDA sources, built at first use by utils/build.py.  Ported so far:
-the collapsed twisted-Edwards BLS12-377 MSM (msm/api.py).
+Layout mirrors the reference package (field/, curve/, msm/, ntt/, poly/,
+pcs/, hash/, pairing/, plonk/, marlin/, posw/); csrc/ holds the CUDA
+sources and the host C++ linear combination, built at first use by
+utils/build.py.  Not ported yet: the sharded forms (parallel/).
 """

@@ -10,6 +10,10 @@ reducing values mod p exactly through python ints (fine at test sizes;
 the main path never converts a large table).  Like the other entry
 points, they return tensors on the card unless the caller passes
 ``device="cpu"``.
+
+The `*_to_reference` converters go the other way, to numpy planes of the
+reference's form (canonical limbs < 2^15): `pcs/storage.py` writes its
+files through them, so a file of either package loads in the other.
 """
 
 from __future__ import annotations
@@ -33,6 +37,44 @@ def _ints(planes: np.ndarray) -> np.ndarray:
     weights = np.array([1 << (BASE_BITS * j) for j in range(planes.shape[-1])],
                        dtype=object)
     return planes.astype(object) @ weights
+
+
+def limbs_of_ints(values, n_limbs: int) -> np.ndarray:
+    """Non-negative python ints (any nesting) -> (..., n_limbs) uint32
+    base-2^15 limbs, each below 2^15."""
+    arr = np.asarray(values, dtype=object)
+    nbytes = (n_limbs * BASE_BITS + 7) // 8
+    raw = np.frombuffer(b"".join(int(v).to_bytes(nbytes, "little")
+                                 for v in arr.reshape(-1)),
+                        np.uint8).reshape(-1, nbytes)
+    bits = np.unpackbits(raw, axis=1, bitorder="little")
+    bits = bits[:, :n_limbs * BASE_BITS].reshape(-1, n_limbs, BASE_BITS)
+    limbs = bits.astype(np.uint32) @ (np.uint32(1) << np.arange(
+        BASE_BITS, dtype=np.uint32))
+    return limbs.reshape(*arr.shape, n_limbs)
+
+
+def elements_to_reference(spec: FieldSpec, words: torch.Tensor
+                          ) -> np.ndarray:
+    """Montgomery words (..., n_words) -> the reference's canonical planes
+    (..., n_limbs) uint32."""
+    return limbs_of_ints(fp.to_ints(spec, words), spec.n_limbs)
+
+
+def points_to_reference(curve: CurveSpec, aff: sw.Affine):
+    """`sw.Affine` -> the reference's (x planes, y planes, inf mask), zero
+    coordinates on identity lanes."""
+    inf = aff.inf.cpu().numpy().astype(bool)
+    x, y = (elements_to_reference(curve.field, c) for c in (aff.x, aff.y))
+    x[inf] = 0
+    y[inf] = 0
+    return x, y, inf
+
+
+def point_to_reference(curve: CurveSpec, pt: sw.Point) -> np.ndarray:
+    """A projective point -> the reference's stacked (3, n_limbs) X, Y, Z
+    planes."""
+    return elements_to_reference(curve.field, torch.stack(tuple(pt)))
 
 
 def elements_from_reference(spec: FieldSpec, planes, device=None
@@ -117,6 +159,14 @@ def gl_to_reference(x: torch.Tensor):
                  for p in gl_ops.to_planes(x))
 
 
+def point_from_reference(curve: CurveSpec, planes, device=None
+                         ) -> sw.Point:
+    """The reference's stacked (3, n_limbs) X, Y, Z planes of a projective
+    point -> `sw.Point`."""
+    xyz = elements_from_reference(curve.field, planes, device)
+    return sw.Point(xyz[0], xyz[1], xyz[2])
+
+
 def srs_from_reference(ref_srs, device=None):
     """A reference `kzg.Srs` -> this port's `pcs.kzg.Srs`: the G1 powers as
     SW affine words on `device`, the G2 pair and tau as they are (ints)."""
@@ -163,3 +213,49 @@ def proof_ints(curve: CurveSpec, proof) -> dict:
         else:
             evals[name] = int(_ints(np.asarray(v))) % r
     return {"comms": [point_ints(curve, q) for q in pts], "evals": evals}
+
+
+def index_vk_from_reference(ref_vk):
+    """A reference Marlin `IndexVerifierKey` -> this port's: the index
+    commitments as host affine int pairs."""
+    from .marlin.indexer import IndexVerifierKey
+    curve = _port_curve(ref_vk.curve)
+    return IndexVerifierKey(curve, ref_vk.num_public, ref_vk.log_n,
+                            ref_vk.log_k, ref_vk.log_x,
+                            {name: point_ints(ref_vk.curve, c)
+                             for name, c in ref_vk.commitments.items()})
+
+
+def index_from_reference(ref_pk, device=None):
+    """A reference Marlin `IndexProverKey` -> this port's on `device`: its
+    R1CS copied, the matrices' planes (any numpy-convertible arrays)
+    as Montgomery words, its SRS through `srs_from_reference` and its
+    verifying key through `index_vk_from_reference`."""
+    from .marlin.indexer import IndexedMatrix, IndexProverKey
+    from .marlin.r1cs import R1CS
+    device = resolve_device(device)
+    curve = _port_curve(ref_pk.curve)
+    fr = curve.scalar
+    r = ref_pk.r1cs
+    r1cs = R1CS(fr, r.num_public, r.num_vars, list(r.a), list(r.b),
+                list(r.c), r.num_constraints)
+
+    def idx(a):
+        return torch.as_tensor(np.asarray(a, np.int64), device=device)
+
+    def planes(a):
+        return elements_from_reference(fr, np.asarray(a), device)
+
+    matrices = {
+        name: IndexedMatrix(
+            idx(m.rows_idx), idx(m.cols_idx), planes(m.row_e),
+            planes(m.col_e), planes(m.val), planes(m.val_raw),
+            planes(m.row_coeffs), planes(m.col_coeffs),
+            planes(m.val_coeffs))
+        for name, m in ref_pk.matrices.items()}
+    return IndexProverKey(curve, r1cs, ref_pk.log_n, ref_pk.log_k,
+                          ref_pk.log_x,
+                          np.asarray(ref_pk.slot_of_var, np.int64),
+                          matrices, srs_from_reference(ref_pk.srs, device),
+                          index_vk_from_reference(ref_pk.vk),
+                          ref_pk.commit_len)

@@ -24,6 +24,8 @@ runs on any device.  On the card it serves the glue between kernels
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import functools
 
@@ -48,6 +50,7 @@ class _Consts:
     r: int                   # R mod p (Montgomery one)
     r2: int                  # R^2 mod p
     n0: int                  # -p^-1 mod 2^16
+    r_inv: int               # R^-1 mod p
 
 
 @functools.lru_cache(maxsize=None)
@@ -56,7 +59,7 @@ def _consts(spec: FieldSpec) -> _Consts:
     p = spec.p
     big_r = 1 << (32 * nw)
     return _Consts(nw, 2 * nw, big_r % p, big_r * big_r % p,
-                   (-pow(p, -1, 1 << _D)) % (1 << _D))
+                   (-pow(p, -1, 1 << _D)) % (1 << _D), pow(big_r, -1, p))
 
 
 def montgomery_params(spec: FieldSpec) -> dict:
@@ -170,11 +173,59 @@ def _binary(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor):
 
 
 # ---------------------------------------------------------------------------
+# python ints for the plain versions' serial folds
+# ---------------------------------------------------------------------------
+
+_python_ints = contextvars.ContextVar("python_ints", default=False)
+
+
+@contextlib.contextmanager
+def python_ints():
+    """Within this block `mul`, `add` and `sub` of CPU tensors run on
+    python ints.  The words that come out are the same (both are exact and
+    fully reduced), but the digit engine spends some 30 torch operations
+    on each field operation, about a millisecond whatever the batch, where
+    the host's big ints take microseconds an element.  Only the plain
+    versions of the kernels' serial folds enter it (a window combine's 253
+    doublings on a few lanes); nothing on the card does."""
+    token = _python_ints.set(True)
+    try:
+        yield
+    finally:
+        _python_ints.reset(token)
+
+
+def _host_ints(spec: FieldSpec, a: torch.Tensor) -> list[int]:
+    """The words of every element as one int each (no Montgomery
+    conversion)."""
+    nw = _consts(spec).nw
+    raw = a.contiguous().numpy().tobytes()
+    step = 4 * nw
+    return [int.from_bytes(raw[i:i + step], "little")
+            for i in range(0, len(raw), step)]
+
+
+def _host_op(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor, fn):
+    """fn(x, y) of every element pair on python ints inside `python_ints`,
+    or None outside it or for operands off the CPU."""
+    if (not _python_ints.get() or a.device.type != "cpu"
+            or b.device.type != "cpu"):
+        return None
+    a, b = torch.broadcast_tensors(a, b)
+    out = [fn(x, y) for x, y in zip(_host_ints(spec, a), _host_ints(spec, b))]
+    return _ints_to_words(spec, out, a.shape[:-1])
+
+
+# ---------------------------------------------------------------------------
 # public ops: (..., nw) int32 Montgomery words in, fully reduced words out
 # ---------------------------------------------------------------------------
 
 
 def mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    p, r_inv = spec.p, _consts(spec).r_inv
+    host = _host_op(spec, a, b, lambda x, y: x * y * r_inv % p)
+    if host is not None:
+        return host
     ad, bd, shape = _binary(spec, a, b)
     return _from_digits(spec, _mont_mul(spec, ad, bd), shape)
 
@@ -184,6 +235,10 @@ def sqr(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
 
 
 def add(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    p = spec.p
+    host = _host_op(spec, a, b, lambda x, y: (x + y) % p)
+    if host is not None:
+        return host
     ad, bd, shape = _binary(spec, a, b)
     s = torch.nn.functional.pad(ad + bd, (0, 0, 0, 1))
     return _from_digits(spec, _cond_sub(spec, _norm(s, 1)), shape)
@@ -192,6 +247,10 @@ def add(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def sub(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a - b + p lies in (0, 2p), so one conditional subtraction reduces;
     p in borrowed form keeps every lower digit of a - b + p non-negative."""
+    p = spec.p
+    host = _host_op(spec, a, b, lambda x, y: (x - y) % p)
+    if host is not None:
+        return host
     ad, bd, shape = _binary(spec, a, b)
     s = torch.nn.functional.pad(ad - bd, (0, 0, 0, 1))
     s += _reduce_consts(spec, s.device)[2]

@@ -552,12 +552,15 @@ def te_combine(curve: CurveSpec, window_sums: torch.Tensor, c: int
 
 def te_combine_plain(curve: CurveSpec, window_sums: torch.Tensor, c: int
                      ) -> torch.Tensor:
-    acc = te.unpack(window_sums[-1])
-    for w in range(window_sums.shape[0] - 2, -1, -1):
-        for _ in range(c):
-            acc = te.dbl(curve, acc)
-        acc = te.add(curve, acc, te.unpack(window_sums[w]))
-    return te.pack(acc)
+    """The serial fold on python ints where the sums lie on the CPU
+    (`fp.python_ints`)."""
+    with fp.python_ints():
+        acc = te.unpack(window_sums[-1])
+        for w in range(window_sums.shape[0] - 2, -1, -1):
+            for _ in range(c):
+                acc = te.dbl(curve, acc)
+            acc = te.add(curve, acc, te.unpack(window_sums[w]))
+        return te.pack(acc)
 
 
 # ---------------------------------------------------------------------------
@@ -735,9 +738,12 @@ def sw_combine(curve: CurveSpec, window_sums: torch.Tensor, c: int
 
 def sw_combine_plain(curve: CurveSpec, window_sums: torch.Tensor, c: int
                      ) -> torch.Tensor:
-    acc = sw.unpack(window_sums[-1])
-    for w in range(window_sums.shape[0] - 2, -1, -1):
-        for _ in range(c):
-            acc = sw.dbl_a0(curve, acc)
-        acc = sw.add(curve, acc, sw.unpack(window_sums[w]))
-    return sw.pack(acc)
+    """The serial fold on python ints where the sums lie on the CPU
+    (`fp.python_ints`)."""
+    with fp.python_ints():
+        acc = sw.unpack(window_sums[-1])
+        for w in range(window_sums.shape[0] - 2, -1, -1):
+            for _ in range(c):
+                acc = sw.dbl_a0(curve, acc)
+            acc = sw.add(curve, acc, sw.unpack(window_sums[w]))
+        return sw.pack(acc)

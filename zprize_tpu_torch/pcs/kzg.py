@@ -32,6 +32,7 @@ from ..pairing.host import g1_add, g1_mul, g1_neg, host_pairing
 from ..pairing.params import pairing_for_curve
 from ..poly import ops as poly_ops
 from ..utils.device import resolve_device
+from . import lincomb
 
 
 @dataclasses.dataclass
@@ -246,7 +247,13 @@ def verify(srs: Srs, commitment, z, y, witness) -> bool:
 
 def combine_ints(curve: CurveSpec, pts, ks):
     """sum_i ks[i]·pts[i] over host affine int pairs (None = identity;
-    scalars reduced mod the group order): the python fold."""
+    0 <= k < 2^256): the native interleaved multi-exponentiation
+    (`pcs/lincomb.py`); raises if its library does not build."""
+    return lincomb.lincomb(curve, pts, ks)
+
+
+def combine_ints_plain(curve: CurveSpec, pts, ks):
+    """The same sum by the python double-and-add fold."""
     p = curve.field.p
     acc = None
     for pt, k in zip(pts, ks):

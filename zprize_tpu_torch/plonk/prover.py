@@ -162,17 +162,27 @@ def setup(curve: CurveSpec, circuit: CompiledCircuit, srs: kzg.Srs):
     polys = dict(selectors, s1=sigma_coeffs[0], s2=sigma_coeffs[1],
                  s3=sigma_coeffs[2])
     comms = {name: kzg.commit(srs, coeffs) for name, coeffs in polys.items()}
-
-    # L1 has every coefficient 1/n
-    polys["l1"] = fp.constant(fr, pow(n, -1, p), (n,), dev)
-    names = list(polys)
-    cos = _coset_eval(dom4, g, torch.stack([polys[k] for k in names]))
     vk = VerifyingKey(curve, n, circuit.k1, circuit.k2,
                       list(circuit.public_rows), dict(comms))
     pk = ProvingKey(curve, circuit, srs, dom, dom4, g, selectors,
                     sigma_coeffs, sigma_evals, id_evals,
-                    dict(zip(names, cos)), comms, vk)
+                    coset_forms(dom4, g, selectors, sigma_coeffs), comms, vk)
     return pk, vk
+
+
+def coset_forms(dom4: Domain, g: int, selectors: dict,
+                sigma_coeffs: torch.Tensor) -> dict:
+    """The selectors', the sigmas' and L1's evaluations on the 4n coset
+    g·H_4n (L1 has every coefficient 1/n)."""
+    fr = dom4.spec
+    n = sigma_coeffs.shape[-2]
+    polys = dict(selectors, s1=sigma_coeffs[0], s2=sigma_coeffs[1],
+                 s3=sigma_coeffs[2],
+                 l1=fp.constant(fr, pow(n, -1, fr.p), (n,),
+                                sigma_coeffs.device))
+    names = list(polys)
+    cos = _coset_eval(dom4, g, torch.stack([polys[k] for k in names]))
+    return dict(zip(names, cos))
 
 
 def prove(pk: ProvingKey, assignment: dict, public: list[int],

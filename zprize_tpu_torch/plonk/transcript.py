@@ -9,6 +9,11 @@ Encoding, as the reference's: an Fq coordinate (377 bits) enters the Fr
 sponge as two elements, the canonical value's low 13 and high 13
 base-2^15 limbs, lo = x mod 2^195 and hi = x >> 195.  The identity point
 embeds as (0, 0).
+
+`Transcript.broadcast(B)` forks B lanes (`TranscriptLanes`), each an
+independent host sponge: lane b's challenges are those of a single
+transcript fed lane b's absorbs, as the reference's broadcast (B-lane)
+transcript gives them.
 """
 
 from __future__ import annotations
@@ -71,15 +76,63 @@ class Transcript:
         t.sponge = self.sponge.clone()
         return t
 
+    def broadcast(self, batch: int) -> "TranscriptLanes":
+        """Fork into `batch` lanes that evolve independently from this
+        state (the B-instance prover and verifier: one lane a proof)."""
+        return TranscriptLanes([self.clone() for _ in range(batch)])
 
-def vk_transcript(curve: CurveSpec, vk, label: int = LABEL) -> Transcript:
+
+class TranscriptLanes:
+    """B transcripts driven together: every absorb takes a list of one
+    value a lane, and `challenge` returns one int a lane."""
+
+    def __init__(self, lanes: list[Transcript]):
+        self.lanes = lanes
+
+    def absorb_fr(self, values):
+        if len(values) != len(self.lanes):
+            raise ValueError(f"{len(values)} values for {len(self.lanes)} "
+                             "lanes")
+        for tr, v in zip(self.lanes, values):
+            tr.absorb_fr(v)
+
+    def absorb_points_ints(self, xys):
+        """Absorb one host affine point (x, y), or None, a lane."""
+        if len(xys) != len(self.lanes):
+            raise ValueError(f"{len(xys)} points for {len(self.lanes)} "
+                             "lanes")
+        for tr, xy in zip(self.lanes, xys):
+            tr.absorb_point_ints(xy)
+
+    def challenge(self) -> list[int]:
+        return [tr.challenge() for tr in self.lanes]
+
+
+def lane_points_ints(curve: CurveSpec, p: sw.Point) -> list:
+    """A (B,)-lane projective point -> B host affine int pairs (None for
+    an identity lane), with one copy from the device."""
+    q = curve.field.p
+    xyz = fp.to_ints(curve.field, torch.stack(tuple(p)))
+    out = []
+    for x, y, z in zip(*xyz):
+        if z == 0:
+            out.append(None)
+            continue
+        zinv = pow(int(z), -1, q)
+        out.append((int(x) * zinv % q, int(y) * zinv % q))
+    return out
+
+
+def vk_transcript(curve: CurveSpec, vk, label: int = LABEL,
+                  absorb=None) -> Transcript:
     """A transcript forked from the verifying key's absorbed prefix, which
     is the same for every proof under one key and so is built once per key
-    (cached on `vk`)."""
+    (cached on `vk`).  `absorb(transcript, vk)` replaces
+    `Transcript.absorb_vk` for keys of another protocol (Marlin's)."""
     cached = getattr(vk, "_transcript_prefix", None)
     if cached is None or cached[0] != label:
         tr = Transcript(curve, label=label)
-        tr.absorb_vk(vk)
+        (absorb or Transcript.absorb_vk)(tr, vk)
         cached = (label, tr)
         vk._transcript_prefix = cached
     return cached[1].clone()

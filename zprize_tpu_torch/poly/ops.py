@@ -56,16 +56,17 @@ def gpow(spec: FieldSpec, g: int, count: int, inverse: bool = False,
 
 
 def powers(spec: FieldSpec, z: torch.Tensor, count: int) -> torch.Tensor:
-    """[1, z, ..., z^(count-1)] for a scalar row z (n_words,) on its device:
-    a log-doubling ladder (each step appends the known prefix times z^k and
-    squares z^k), log2(count) multiplications."""
-    pows = fp.ones(spec, (1,), z.device)
-    zk = z[None]
-    while pows.shape[0] < count:
-        take = min(pows.shape[0], count - pows.shape[0])
-        pows = torch.cat([pows, fp.mul(spec, pows[:take], zk)])
+    """[1, z, ..., z^(count-1)] for scalar rows z (..., n_words) on their
+    device, as (..., count, n_words): a log-doubling ladder (each step
+    appends the known prefix times z^k and squares z^k), log2(count)
+    multiplications."""
+    pows = fp.ones(spec, (*z.shape[:-1], 1), z.device)
+    zk = z[..., None, :]
+    while pows.shape[-2] < count:
+        take = min(pows.shape[-2], count - pows.shape[-2])
+        pows = torch.cat([pows, fp.mul(spec, pows[..., :take, :], zk)], -2)
         zk = fp.sqr(spec, zk)
-    return pows[:count]
+    return pows[..., :count, :]
 
 
 def sum_axis(spec: FieldSpec, a: torch.Tensor, axis: int) -> torch.Tensor:
@@ -82,8 +83,10 @@ def sum_axis(spec: FieldSpec, a: torch.Tensor, axis: int) -> torch.Tensor:
 
 def evaluate(spec: FieldSpec, a: torch.Tensor, z: torch.Tensor
              ) -> torch.Tensor:
-    """p(z) for every polynomial of a (..., n, n_words): the power ladder
-    and a log-depth sum (replaces Horner).  Returns (..., n_words)."""
+    """p(z) for every polynomial of a (..., n, n_words) at the scalar row
+    z (n_words,), or at one row a polynomial (z of a's batch shape): the
+    power ladder and a log-depth sum (replaces Horner).  Returns
+    (..., n_words)."""
     return sum_axis(spec, fp.mul(spec, a, powers(spec, z, a.shape[-2])), -2)
 
 
@@ -98,7 +101,8 @@ def mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def divide_linear(spec: FieldSpec, a: torch.Tensor, z: torch.Tensor):
-    """(quotient, remainder) of a(X) / (X - z) for a (n, n_words).
+    """(quotient, remainder) of a(X) / (X - z) for a (..., n, n_words) and
+    z (..., n_words) (one z for every polynomial, or one a polynomial).
 
     The quotient is q_i = sum_{k > i} a_k z^(k-1-i): with c_j = a_{n-1-j},
     q_i = P_{n-2-i} for the prefix sums P_k = sum_{j <= k} c_j z^(k-j).  All
@@ -109,15 +113,18 @@ def divide_linear(spec: FieldSpec, a: torch.Tensor, z: torch.Tensor):
     `snarkVM polycommit/kzg10/mod.rs:402`)."""
     n = a.shape[-2]
     if n == 1:
-        return fp.zeros(spec, (1,), a.device), a[0]
-    pre = a[1:].flip(0)                           # c_0 .. c_{n-2}
-    zd = z
+        return (fp.zeros(spec, (*a.shape[:-2], 1), a.device),
+                a[..., 0, :])
+    pre = a[..., 1:, :].flip(-2)                  # c_0 .. c_{n-2}
+    zd = z[..., None, :]
     d = 1
     while d < n - 1:
-        pre = torch.cat([pre[:d],
-                         fp.add(spec, pre[d:], fp.mul(spec, pre[:-d], zd))])
+        pre = torch.cat([pre[..., :d, :],
+                         fp.add(spec, pre[..., d:, :],
+                                fp.mul(spec, pre[..., :-d, :], zd))], -2)
         zd = fp.sqr(spec, zd)
         d *= 2
-    quotient = pre.flip(0)                        # q_0 .. q_{n-2}
-    remainder = fp.add(spec, fp.mul(spec, z, quotient[0]), a[0])
+    quotient = pre.flip(-2)                       # q_0 .. q_{n-2}
+    remainder = fp.add(spec, fp.mul(spec, z, quotient[..., 0, :]),
+                       a[..., 0, :])
     return quotient, remainder
