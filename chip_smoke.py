@@ -153,13 +153,35 @@ In order, each phase raising on failure (so the exit code is non-zero):
    prove_batch(8): device time by port kernel and torch ops, and the
    idle share.  Phases 10 and 11 set every counter to 0, the probes'
    too, before each part they count.
+12. (last) checks `entry()`'s fixed-shape MSM (n = 256) against the
+   oracle, then drives the sharded forms (zprize_tpu_torch/parallel) over
+   worlds of rank processes that share the one card (`spawn_world`; the
+   kernels were built here first): SHARD_RANKS = 4 ranks on gloo, whose
+   collectives go through host memory, run (a) `msm_sharded` over
+   BLS12-377 at 2^22 points (2^20 a rank; the tiled base set and a
+   seeded batch made on the card), checked by rank 0 against the
+   closed-form oracle and here against the single-device
+   `msm_jit_static` of the same inputs; (b) the sharded Goldilocks 2^24
+   four-step of bench.py's input (`BENCH_METRIC=ntt_dist`), every output
+   checked by its rank against the single-device `ntt_fourstep_packed`,
+   timed over 5 calls (goldilocks_ntt_dist_2^24_ms: time of the
+   host-staged collective path, not of several cards); (c)
+   `ShardedProver` over phase 7's key (each rank handed its rows) and
+   witness with random.Random(17), which must equal the single-device
+   proof of the same seed, verify, and fail with a tampered evaluation,
+   and a proof with no rng (rank 0 draws the blinding) must verify;
+   first, a probe of whether gloo takes CUDA tensors in all_gather and
+   all_to_all_single.  A world of one NCCL rank runs (a) at 2^18 and (b).
+   Rank 0's launches by part must show sw_gather_accumulate (MSM,
+   proof), gl_ntt (NTT) and fr_ntt (proof).
 
 Prints one JSON line for the 2^18 MSM path, one for the 2^26 path, one
 for the PLONK path, one for the Goldilocks NTT, one for the SW route, one
-for Marlin verification, one for PoSW, one {"kernels": [...]} line (each
-row also with its launches in phase 10's prove_batch of 4 and in a PoSW
-batch of 8, the mean of the timed batches), the total time, the nvidia-smi line, and last {"ok": true,
-"device": {...}}.
+for Marlin verification, one for PoSW, one for the sharded forms, one
+{"kernels": [...]} line (each row also with its launches in phase 10's
+prove_batch of 4, in a PoSW batch of 8, the mean of the timed batches,
+and on rank 0 of phase 12's sharded MSM, NTT and proof), the total time,
+the nvidia-smi line, and last {"ok": true, "device": {...}}.
 """
 
 import json
@@ -230,6 +252,14 @@ VERIFY_CONSTRAINTS = 100                   # bench.py's verify circuit
 VERIFY_WINDOW_S = 10.0                     # BENCH_VERIFY_WINDOW_S
 POSW_BATCH = 8                             # BENCH_POSW_BATCH
 POSW_TIMED = 3                             # timed batches (bench: 20 s)
+# phase 12: ranks sharing the one card (gloo), the sharded MSM's size
+# (2^20 points a rank) and the world of one NCCL rank's
+SHARD_RANKS = 4
+SHARD_MSM_LOG, SHARD_NCCL_MSM_LOG = 22, 18
+SHARD_MSM_TIMED = 2
+SHARD_NTT_ITERS = 5                        # the ntt_dist metric's mean of 5
+SHARD_PROOF_SEED = 17
+SHARD_TIMEOUT_S = 600.0
 # the MSM kernels of the collapsed route (the 2^18 MSM and the PLONK
 # commits); the m = 1 route runs te_gather_accumulate instead of the
 # first two
@@ -2402,6 +2432,363 @@ def gl_row(x, launches, dev):
             "library_ms": None, "shapes": shapes}
 
 
+def _rank_sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def gloo_cuda_probe(world):
+    """Whether gloo takes tensors on the card in all_gather and
+    all_to_all_single (the collectives of parallel/mesh.py) without their
+    going through the host: "ok", or the error's first line."""
+    import torch.distributed as dist
+    out = {}
+    x = torch.full((4, 2), world.rank, dtype=torch.int32, device=world.device)
+    for name in ("all_gather", "all_to_all_single"):
+        try:
+            if name == "all_gather":
+                parts = [torch.empty_like(x) for _ in range(world.size)]
+                dist.all_gather(parts, x, group=world.group)
+                good = all(int(p[0, 0]) == r for r, p in enumerate(parts))
+            else:
+                y = torch.empty_like(x)
+                dist.all_to_all_single(y, x, group=world.group)
+                good = [int(v) for v in y[:, 0]] == [
+                    r for r in range(world.size)
+                    for _ in range(4 // world.size)]
+            out[name] = "ok" if good else "wrong result"
+        except Exception as exc:       # the finding is the error itself
+            out[name] = f"{type(exc).__name__}: {str(exc).splitlines()[0]}"
+    return out
+
+
+def shard_msm(world, log_n, timed_reps):
+    """Phase 12a on one rank: the points-sharded BLS12-377 MSM of 2^log_n
+    tiled points (N_BASE distinct (i+1)·G; this rank's block) and one
+    seeded compact scalar batch made on the card (the same on every
+    rank), c from `default_window_bits` of the rank's rows.  A warm-up
+    (its launches counted) and `timed_reps` timed calls on the host clock
+    (each ends in the all-gather, so it waits for the slowest rank); rank
+    0 checks the result against the closed-form oracle."""
+    from zprize_tpu_torch.curve import sw
+    from zprize_tpu_torch.curve.spec import BLS12_377_G1
+    from zprize_tpu_torch.msm import pippenger
+    from zprize_tpu_torch.parallel.mesh import shard_rows
+    from zprize_tpu_torch.parallel.msm_sharded import msm_sharded
+    from zprize_tpu_torch.utils import oracle
+    curve, dev = BLS12_377_G1, world.device
+    n = 1 << log_n
+    n_local = n // world.size
+    aff = tiled_points(curve, n_local, dev)      # the block of the tiling
+    gen = torch.Generator(device=dev).manual_seed(SEED + log_n)
+    batch = oracle.scalar_batch_torch(curve, n, gen)
+    s_local = shard_rows(batch, world)
+    c = pippenger.default_window_bits(n_local)
+    reset_all_launches()
+    res = msm_sharded(curve, aff, s_local, world, c=c)
+    _rank_sync(dev)
+    launches = all_launches()
+    times = []
+    for _ in range(timed_reps):
+        _rank_sync(dev)
+        t0 = time.perf_counter()
+        res = msm_sharded(curve, aff, s_local, world, c=c)
+        _rank_sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    if world.rank == 0:
+        check_tiled(curve, res, batch.cpu().numpy(),
+                    f"sharded MSM 2^{log_n} over {world.size} ranks")
+    return {"n": n, "n_local": n_local, "c": c,
+            "affine": sw.to_affine_ints(curve, res), "ms": times,
+            "launches": launches, "oracle_checked": world.rank == 0}
+
+
+def shard_ntt(world, log_n1, log_n2, period, iters):
+    """Phase 12b on one rank: the column-sharded Goldilocks four-step of
+    bench.py's periodic input (`period` draws of random.Random(0), tiled),
+    a warm-up (its launches counted, its tables built) and `iters` timed
+    calls on the host clock, on the card one more call traced on rank 0;
+    the rank's rows of the output checked bit for bit against the
+    single-device `ntt_fourstep_packed`."""
+    from zprize_tpu_torch.field.spec import GOLDILOCKS
+    from zprize_tpu_torch.ntt import gl_kernel, gl_ops
+    from zprize_tpu_torch.parallel.ntt_sharded import ntt_fourstep_sharded
+    dev, d, r = world.device, world.size, world.rank
+    n1, n2 = 1 << log_n1, 1 << log_n2
+    rng = random.Random(0)
+    sample = [rng.randrange(gl_ops.Q) for _ in range(period)]
+    x = gl_ops.from_ints(sample, dev).repeat(n1 * n2 // period)
+    cols, rows = n2 // d, n1 // d
+    m_local = gl_ops.to_words(x.view(n1, n2)[:, r * cols:(r + 1) * cols])
+    reset_all_launches()
+    c_local = ntt_fourstep_sharded(GOLDILOCKS, m_local, world, log_n1,
+                                   log_n2)
+    _rank_sync(dev)
+    launches = all_launches()
+    times = []
+    for _ in range(iters):
+        _rank_sync(dev)
+        t0 = time.perf_counter()
+        c_local = ntt_fourstep_sharded(GOLDILOCKS, m_local, world, log_n1,
+                                       log_n2)
+        _rank_sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    profile = None
+    if dev.type == "cuda":
+        # one more call, traced on rank 0: the device time by kernel and
+        # op (the collective's host side does not show)
+        from torch.profiler import ProfilerActivity, profile as trace
+        _rank_sync(dev)
+        if r == 0:
+            t0 = time.perf_counter()
+            with trace(activities=[ProfilerActivity.CUDA]) as prof:
+                ntt_fourstep_sharded(GOLDILOCKS, m_local, world, log_n1,
+                                     log_n2)
+                _rank_sync(dev)
+            wall = (time.perf_counter() - t0) * 1e3
+            ops = sorted(device_kernels(prof), reverse=True)
+            profile = {"wall_ms": wall,
+                       "device_ms": sum(ms for ms, _, _ in ops),
+                       "top": [[round(ms, 4), k, name[:60]]
+                               for ms, k, name in ops[:8]]}
+        else:
+            ntt_fourstep_sharded(GOLDILOCKS, m_local, world, log_n1, log_n2)
+    # C[k1, k2] = A[k1 + n1 k2]: the rank's rows k1 of A read as (n2, n1)
+    ref = gl_kernel.ntt_fourstep_packed(log_n1, log_n2, x, dev)
+    mine = ref.view(n2, n1).t()[r * rows:(r + 1) * rows]
+    wrong = int((gl_ops.from_words(c_local) != mine).sum())
+    if wrong:
+        raise AssertionError(f"rank {r}: {wrong} outputs of the sharded "
+                             "four-step != the single-device four-step")
+    return {"log_n": log_n1 + log_n2, "ms": times,
+            "ms_mean": sum(times) / len(times), "launches": launches,
+            "checked_outputs": rows * n2, "profile": profile}
+
+
+def shard_proof(world, shards, wires, public, seed):
+    """Phase 12c on one rank: ShardedProver over this rank's KeyShard, a
+    warm-up proof (its launches counted) and a timed one, each with
+    blinding_rng = random.Random(seed), so both are the same proof; then
+    one with no rng (rank 0 draws the blinding for every rank)."""
+    from zprize_tpu_torch import convert
+    from zprize_tpu_torch.curve.spec import BLS12_377_G1
+    from zprize_tpu_torch.parallel.plonk_sharded import ShardedProver
+    dev, d, r = world.device, world.size, world.rank
+    t0 = time.perf_counter()
+    prover = ShardedProver(shards[r], world)
+    m = wires.shape[1] // d
+    local = wires[:, r * m:(r + 1) * m].to(dev)
+    _rank_sync(dev)
+    init_s = time.perf_counter() - t0
+    reset_all_launches()
+    times, proofs = [], []
+    for k in range(2):
+        _rank_sync(dev)
+        t0 = time.perf_counter()
+        proof = prover.prove(local, public, blinding_rng=random.Random(seed))
+        _rank_sync(dev)
+        times.append(time.perf_counter() - t0)
+        if k == 0:
+            launches = all_launches()
+        proofs.append(convert.proof_ints(BLS12_377_G1, proof))
+    if proofs[0] != proofs[1]:
+        raise AssertionError(f"rank {r}: two proofs of one seed differ")
+    unseeded = convert.proof_ints(BLS12_377_G1, prover.prove(local, public))
+    return {"proof": proofs[0], "unseeded_proof": unseeded,
+            "init_s": init_s, "warmup_s": times[0], "prove_s": times[1],
+            "launches": launches}
+
+
+def sharded_rank(world, msm, ntt, proof, probe):
+    """Phase 12 on one rank of `world`: `msm` (log n, timed calls), `ntt`
+    (log n1, log n2, period, iterations) and `proof` (KeyShards, wires,
+    public, seed) each None or the arguments of its part; with `probe`,
+    the gloo probe first.  Prints nothing: the parent reports."""
+    out = {"rank": world.rank, "device": str(world.device)}
+    if probe:
+        out["gloo_cuda"] = gloo_cuda_probe(world)
+    if msm is not None:
+        out["msm"] = shard_msm(world, *msm)
+    if ntt is not None:
+        out["ntt"] = shard_ntt(world, *ntt)
+    if proof is not None:
+        out["proof"] = shard_proof(world, *proof)
+    return out
+
+
+def _same_on_every_rank(results, part, key):
+    vals = [res[part][key] for res in results]
+    if any(v != vals[0] for v in vals):
+        raise AssertionError(f"{part}: the ranks disagree on {key}")
+    return vals[0]
+
+
+def _proof_from_ints(curve, ints, dev):
+    from zprize_tpu_torch.curve import sw
+    from zprize_tpu_torch.field import fp
+    from zprize_tpu_torch.plonk.prover import Proof
+    f, fr = curve.field, curve.scalar
+    comms = [sw.Point(*(fp.from_ints(f, [v], dev)[0] for v in (*xy, 1)))
+             for xy in ints["comms"]]
+    evals = {k: fp.from_ints(fr, [v], dev)[0]
+             for k, v in ints["evals"].items()}
+    return Proof(comms[:3], comms[3], comms[4:7], evals, comms[7], comms[8])
+
+
+def sharded_path(dev, pk, wires, public):
+    """Phase 12: the sharded forms (parallel/) over worlds of ranks that
+    share the one card: SHARD_RANKS gloo ranks run the 2^SHARD_MSM_LOG
+    sharded MSM, the sharded Goldilocks 2^24 four-step and the sharded
+    PLONK proof of phase 7's key and witness; a world of one NCCL rank
+    runs the MSM at 2^SHARD_NCCL_MSM_LOG and the four-step; first,
+    `entry()`'s fixed-shape MSM.  Every result is checked (oracle,
+    single-device forms, verifier) in the ranks or here; returns (rank
+    0's launches by part, summary)."""
+    from zprize_tpu_torch import convert
+    from zprize_tpu_torch.curve import sw
+    from zprize_tpu_torch.curve.spec import BLS12_377_G1
+    from zprize_tpu_torch.entry import entry
+    from zprize_tpu_torch.field import fp
+    from zprize_tpu_torch.msm import pippenger
+    from zprize_tpu_torch.parallel import mesh, plonk_sharded
+    from zprize_tpu_torch.plonk import prover, verifier
+    from zprize_tpu_torch.utils import oracle
+    curve = BLS12_377_G1
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    # the single-chip entry: one fixed-shape MSM of the generator tiled
+    fn, args = entry(dev)
+    got = sw.to_affine_ints(curve, sw.Point(*fn(*args)))
+    limbs = args[3].cpu().numpy().astype(object)        # base 2^15
+    total = int((limbs @ [1 << 15 * j for j in range(limbs.shape[1])]).sum())
+    if got != oracle.ec_mul(oracle.generator(curve), total % curve.order,
+                            curve.field.p):
+        raise AssertionError("entry(): its MSM != the oracle")
+    log("entry(): the fixed-shape MSM (n = 256, c = 6) == the oracle")
+    ntt_args = (GL_LOG1, GL_LOG2, GL_PERIOD, SHARD_NTT_ITERS)
+    shards = [plonk_sharded.key_shard(pk, SHARD_RANKS, r)
+              for r in range(SHARD_RANKS)]
+    proof_args = (shards, wires.cpu(), public, SHARD_PROOF_SEED)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.time()
+    ranks = mesh.spawn_world(
+        sharded_rank, SHARD_RANKS, dev, "gloo",
+        args=((SHARD_MSM_LOG, SHARD_MSM_TIMED), ntt_args, proof_args,
+              dev.type == "cuda"), timeout_s=SHARD_TIMEOUT_S)
+    gloo_s = time.time() - t0
+    r0 = ranks[0]
+    log(f"phase 12 gloo world of {SHARD_RANKS} on {dev}: {gloo_s:.1f} s "
+        f"with the spawn; gloo on CUDA tensors: {r0.get('gloo_cuda')}")
+
+    def msm_reference(log_n, got):
+        """The single-device msm_jit_static of the same inputs."""
+        n = 1 << log_n
+        gen = torch.Generator(device=dev).manual_seed(SEED + log_n)
+        batch = oracle.scalar_batch_torch(curve, n, gen)
+        c = got["c"]
+        ref = pippenger.msm_jit_static(curve, tiled_points(curve, n, dev),
+                                       batch, c, n)
+        sync()
+        if sw.to_affine_ints(curve, ref) != tuple(got["affine"]):
+            raise AssertionError(f"sharded MSM 2^{log_n} != the "
+                                 "single-device MSM")
+
+    msm = dict(r0["msm"], affine=_same_on_every_rank(ranks, "msm",
+                                                     "affine"))
+    msm_reference(SHARD_MSM_LOG, msm)
+    log(f"sharded MSM 2^{SHARD_MSM_LOG} ({SHARD_RANKS} x "
+        f"{msm['n_local']}, c = {msm['c']}): "
+        f"{msm['ms']} ms (rank 0, host clock), == oracle and == the "
+        "single-device MSM")
+    ntt = r0["ntt"]
+    log(f"sharded goldilocks 2^{ntt['log_n']}: {ntt['ms']} ms, every output "
+        "== the single-device four-step")
+
+    proof_ints = _same_on_every_rank(ranks, "proof", "proof")
+    ref_proof = prover.prove_planes(pk, wires, public,
+                                    blinding_rng=random.Random(
+                                        SHARD_PROOF_SEED))
+    if convert.proof_ints(curve, ref_proof) != proof_ints:
+        raise AssertionError("the sharded proof != phase 7's single-device "
+                             "proof")
+    sharded = _proof_from_ints(curve, proof_ints, dev)
+    if not verifier.verify(pk.vk, pk.srs, sharded, public):
+        raise AssertionError("the sharded proof does not verify")
+    bad = dict(sharded.evals)
+    bad["a"] = fp.add(curve.scalar, bad["a"], fp.ones(curve.scalar, (), dev))
+    if verifier.verify(pk.vk, pk.srs, prover.Proof(
+            sharded.wire_comms, sharded.z_comm, sharded.t_comms, bad,
+            sharded.w_zeta, sharded.w_zeta_omega), public):
+        raise AssertionError("a tampered sharded proof verifies")
+    unseeded = _proof_from_ints(curve, _same_on_every_rank(
+        ranks, "proof", "unseeded_proof"), dev)
+    if not verifier.verify(pk.vk, pk.srs, unseeded, public):
+        raise AssertionError("the sharded proof blinded from the host's "
+                             "entropy does not verify")
+    log(f"sharded PLONK n = {pk.circuit.n}: warm-up "
+        f"{r0['proof']['warmup_s']:.3f} s, timed {r0['proof']['prove_s']:.3f}"
+        " s (rank 0); == the single-device proof, verified, a tampered "
+        "evaluation rejected; a proof with no rng verified")
+
+    t0 = time.time()
+    one = mesh.spawn_world(
+        sharded_rank, 1, dev, None,
+        args=((SHARD_NCCL_MSM_LOG, SHARD_MSM_TIMED), ntt_args, None, False),
+        timeout_s=SHARD_TIMEOUT_S)[0]
+    nccl_s = time.time() - t0
+    msm_reference(SHARD_NCCL_MSM_LOG, one["msm"])
+    log(f"phase 12 world of 1 ({'nccl' if dev.type == 'cuda' else 'gloo'}):"
+        f" {nccl_s:.1f} s with the spawn; MSM 2^{SHARD_NCCL_MSM_LOG} "
+        f"{one['msm']['ms']} ms, goldilocks 2^{one['ntt']['log_n']} "
+        f"{one['ntt']['ms']} ms, both checked")
+
+    launches = {"msm": r0["msm"]["launches"], "ntt": r0["ntt"]["launches"],
+                "proof": r0["proof"]["launches"]}
+    for part, names in (("msm", ("sw_gather_accumulate",)),
+                        ("ntt", ("gl_ntt",)),
+                        ("proof", ("sw_gather_accumulate", "fr_ntt"))):
+        missing = [k for k in names if not launches[part][k]]
+        if missing:
+            raise AssertionError(f"rank 0's sharded {part} launched no "
+                                 f"{missing}")
+    if not (one["msm"]["launches"]["sw_gather_accumulate"]
+            and one["ntt"]["launches"]["gl_ntt"]):
+        raise AssertionError("the world of one launched no "
+                             "sw_gather_accumulate or no gl_ntt")
+    summary = {
+        "metric": "sharded",
+        "world": SHARD_RANKS, "backend": "gloo",
+        "ranks_per_card": SHARD_RANKS if dev.type == "cuda" else None,
+        "collectives_staged_through_host": dev.type == "cuda",
+        "gloo_cuda_probe": r0.get("gloo_cuda"),
+        f"goldilocks_ntt_dist_2^{ntt['log_n']}_ms": ntt["ms_mean"],
+        "goldilocks_ntt_dist_ms": ntt["ms"],
+        f"msm_sharded_2^{SHARD_MSM_LOG}_ms": msm["ms"],
+        "msm_sharded_c": msm["c"],
+        "sharded_proof_n": pk.circuit.n,
+        "sharded_prove_s": r0["proof"]["prove_s"],
+        "sharded_warmup_prove_s": r0["proof"]["warmup_s"],
+        "sharded_prover_init_s": r0["proof"]["init_s"],
+        "gloo_world_s": gloo_s,
+        "nccl_world": {
+            "world": 1, "backend": "nccl" if dev.type == "cuda" else "gloo",
+            f"msm_2^{SHARD_NCCL_MSM_LOG}_ms": one["msm"]["ms"],
+            f"goldilocks_ntt_dist_2^{one['ntt']['log_n']}_ms":
+                one["ntt"]["ms_mean"],
+            "ntt_profile": one["ntt"]["profile"],
+            "world_s": nccl_s},
+        "goldilocks_ntt_dist_profile_rank0": ntt["profile"],
+        "launches_rank0": launches,
+        "checks": ["msm == oracle and == single-device",
+                   "ntt == single-device four-step (every output)",
+                   "proof == single-device proof, verifies, tamper "
+                   "rejected; an unseeded proof verifies",
+                   "world of 1: msm == oracle and == single-device, ntt =="
+                   " single-device"],
+    }
+    return launches, summary
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2476,7 +2863,6 @@ def main():
                                     plonk_launches["te_full_add"], dev))
     kernels.append(gl_kernel_row)
     kernels.extend(sw_kernel_rows)
-    del pk, wires
     torch.cuda.empty_cache()
     # phases 10 and 11 reset every counter, the probes' too: read the
     # probes' count over phases 3d to 7 first
@@ -2488,6 +2874,11 @@ def main():
     t0 = time.time()
     posw_launches, posw_summary = posw_path(dev)
     log(f"phase 11: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    shard_launches, sharded = sharded_path(dev, pk, wires, public)
+    log(f"phase 12: {time.time() - t0:.1f} s")
+    del pk, wires
+    torch.cuda.empty_cache()
     for row in probe_rows:
         if (row["launches"] or verify_launches[row["name"]]
                 or posw_launches[row["name"]]):
@@ -2497,6 +2888,8 @@ def main():
     for row in kernels:
         row["launches_marlin_prove_batch_4"] = verify_launches[row["name"]]
         row["launches_posw_batch_8"] = posw_launches[row["name"]]
+        for part, counts in shard_launches.items():
+            row[f"launches_sharded_{part}_rank0"] = counts[row["name"]]
     print(json.dumps(summary), flush=True)
     print(json.dumps(prize), flush=True)
     print(json.dumps(plonk), flush=True)
@@ -2504,6 +2897,7 @@ def main():
     print(json.dumps(sw_msm), flush=True)
     print(json.dumps(verify), flush=True)
     print(json.dumps(posw_summary), flush=True)
+    print(json.dumps(sharded), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"chip_smoke total: {time.time() - start_s:.1f} s")
     print(card, flush=True)

@@ -1,9 +1,11 @@
-"""The port stands alone: every module imports with jax blocked, no source
-names jax or the reference package, and without a card the default-device
-entry points (the MSM's on both routes, the test SRS's on both curves, the
-NTT domain's, the Poseidon sponge's, the Goldilocks NTT's, Marlin's index
-and prover, PoSW's setup, the SRS loader and the converters') and
-chip_smoke.py refuse to run."""
+"""The port stands alone: every module (and the rank-side test helpers of
+tests/torch_ranks.py) imports with jax blocked, no source names jax or the
+reference package, a spawned rank loads neither, and without a card the
+default-device entry points (the MSM's on both routes, the test SRS's on
+both curves, the NTT domain's, the Poseidon sponge's, the Goldilocks
+NTT's, Marlin's index and prover, PoSW's setup, the SRS loader, the
+converters', the multichip entry's, the sharded prover's and the rank
+spawner's) and chip_smoke.py refuse to run."""
 
 import pathlib
 import shutil
@@ -15,7 +17,9 @@ import numpy as np
 import pytest
 import torch
 
+import torch_ranks
 from zprize_tpu_torch import convert
+from zprize_tpu_torch import entry as entry_mod
 from zprize_tpu_torch.curve.spec import BLS12_377_G1, BLS12_381_G1
 from zprize_tpu_torch.hash import poseidon
 from zprize_tpu_torch.hash.grain import snarkvm_config
@@ -23,6 +27,8 @@ from zprize_tpu_torch.marlin import ahp, indexer
 from zprize_tpu_torch.msm import api
 from zprize_tpu_torch.ntt import gl_kernel
 from zprize_tpu_torch.ntt.domain import Domain
+from zprize_tpu_torch.parallel import mesh
+from zprize_tpu_torch.parallel.plonk_sharded import ShardedProver
 from zprize_tpu_torch.pcs import kzg, storage
 from zprize_tpu_torch.posw import posw
 from zprize_tpu_torch.utils import device
@@ -47,6 +53,8 @@ def test_every_module_imports_with_jax_blocked():
         "    zprize_tpu_torch.__path__, 'zprize_tpu_torch.')]",
         "for name in names:",
         "    importlib.import_module(name)",
+        "sys.path.insert(0, 'tests')",
+        "import torch_ranks",
         "ref = [m for m in sys.modules",
         "       if m == 'zprize_tpu' or m.startswith('zprize_tpu.')]",
         "assert not ref, ref",
@@ -54,16 +62,17 @@ def test_every_module_imports_with_jax_blocked():
     ])
     r = _python(["-c", code], ROOT)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 50     # 38 modules, 12 subpackages
+    assert int(r.stdout.split()[-1]) >= 56     # 43 modules, 13 subpackages
 
 
 def test_sources_name_neither_jax_nor_the_reference_package():
     files = [p for p in PKG.rglob("*")
              if p.suffix in (".py", ".cu", ".cuh", ".cc")
              and "_build" not in p.parts]
-    files.append(ROOT / "chip_smoke.py")
-    # 50 modules, 7 CUDA sources, the host lincomb source, chip_smoke
-    assert len(files) >= 59
+    files += [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_ranks.py"]
+    # 56 modules, 7 CUDA sources, the host lincomb source, chip_smoke and
+    # the rank-side test helpers
+    assert len(files) >= 66
     for path in files:
         text = path.read_text()
         assert "zprize_tpu." not in text, path
@@ -74,7 +83,9 @@ def test_sources_name_neither_jax_nor_the_reference_package():
                                    "test_srs", "test_srs_bls12_381",
                                    "domain", "sponge", "gl_ntt",
                                    "marlin_index", "marlin_prove_batch",
-                                   "posw_setup", "load_srs"])
+                                   "posw_setup", "load_srs", "entry",
+                                   "dryrun_multichip", "sharded_prover",
+                                   "spawn_world"])
 def test_default_device_entry_point_requires_a_card(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
@@ -87,6 +98,14 @@ def test_default_device_entry_point_requires_a_card(entry, tmp_path):
                 device=torch.device("cpu")), [[1]])
         elif entry == "posw_setup":
             posw.setup()
+        elif entry == "entry":
+            entry_mod.entry()
+        elif entry == "dryrun_multichip":
+            entry_mod.dryrun_multichip(2)
+        elif entry == "sharded_prover":
+            ShardedProver(None, mesh.World(0, 1))
+        elif entry == "spawn_world":
+            mesh.spawn_world(torch_ranks.modules_loaded, 1)
         elif entry == "load_srs":
             path = tmp_path / "srs.npz"
             np.savez_compressed(path, curve=BLS12_377_G1.name, g1_x=_PLANES,
@@ -152,6 +171,13 @@ def test_wrappers_dispatch_on_their_tensors_device(devices, expect):
             device.on_card(*tensors)
     else:
         assert device.on_card(*tensors) is expect
+
+
+def test_spawned_rank_loads_neither_jax_nor_the_reference():
+    """This process holds both; a rank started by spawn holds neither."""
+    assert "jax" in sys.modules
+    assert mesh.spawn_world(torch_ranks.modules_loaded, 1, device="cpu",
+                            timeout_s=120.0) == [[]]
 
 
 def test_chip_smoke_refuses_without_card_or_package(tmp_path):

@@ -24,11 +24,17 @@ at first use, and again when the source is newer than the library.  Its
 failure raises with the compiler's output as well.  `build_all` starts the
 host builds beside the nvcc ones; `load` of a host library runs only its
 own build, so it needs no CUDA toolkit.
+
+The stale check and the build hold an exclusive `flock` on
+``_build/.lock``, so that processes started together (the ranks of a
+sharded run) build a library once: the others wait, then find it current.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
@@ -91,6 +97,18 @@ def _host_stale(name: str) -> bool:
         os.path.join(CSRC, f"{name}.cc")) > os.path.getmtime(lib))
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """An exclusive lock on the build directory across processes."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
+
+
 def _start_host(name: str):
     tmp = _lib_path(name) + f".{os.getpid()}.tmp"
     cmd = [cxx_path(), *CXX_FLAGS, "-o", tmp,
@@ -102,30 +120,31 @@ def _start_host(name: str):
 def build_host(name: str) -> str | None:
     """Compile ``csrc/<name>.cc`` with the host compiler if it is stale.
     Returns the compiler log, or None if the library was current."""
-    if not _host_stale(name):
-        return None
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    return _finish({name: _start_host(name)})[name]
+    with _build_lock():
+        if not _host_stale(name):
+            return None
+        return _finish({name: _start_host(name)})[name]
 
 
 def build_all() -> dict[str, str]:
     """Compile every stale ``csrc/*.cu`` and ``csrc/*.cc`` (all at once,
     one nvcc or c++ each).  Returns {name: compiler log} for the sources
     it built."""
-    names = [n for n in _sources() if _stale(n)]
-    host = [n for n in _host_sources() if _host_stale(n)]
-    if not names and not host:
-        return {}
-    nvcc = nvcc_path() if names else None
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    procs = {name: _start_host(name) for name in host}
-    for name in names:
-        tmp = _lib_path(name) + f".{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC, "-o", tmp,
-               os.path.join(CSRC, f"{name}.cu")]
-        procs[name] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    return _finish(procs)
+    with _build_lock():
+        names = [n for n in _sources() if _stale(n)]
+        host = [n for n in _host_sources() if _host_stale(n)]
+        if not names and not host:
+            return {}
+        nvcc = nvcc_path() if names else None
+        procs = {name: _start_host(name) for name in host}
+        for name in names:
+            tmp = _lib_path(name) + f".{os.getpid()}.tmp"
+            cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC, "-o", tmp,
+                   os.path.join(CSRC, f"{name}.cu")]
+            procs[name] = (tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        return _finish(procs)
 
 
 def _finish(procs: dict) -> dict[str, str]:

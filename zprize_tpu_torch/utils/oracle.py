@@ -37,14 +37,51 @@ def ec_add(p, q, prime, a=0):
     return (x3, y3)
 
 
+def _jdbl(q, prime, a):
+    """Doubling of a Jacobian point (X, Y, Z) = (X/Z^2, Y/Z^3); Z = 0 is
+    the identity."""
+    x, y, z = q
+    if not z or not y:
+        return (1, 1, 0)
+    yy = y * y % prime
+    s = 4 * x * yy % prime
+    m = (3 * x * x + a * pow(z, 4, prime)) % prime
+    x3 = (m * m - 2 * s) % prime
+    return (x3, (m * (s - x3) - 8 * yy * yy) % prime, 2 * y * z % prime)
+
+
+def _jadd_affine(q, p, prime, a):
+    """Jacobian q plus affine p."""
+    x, y, z = q
+    if not z:
+        return (p[0], p[1], 1)
+    zz = z * z % prime
+    h = (p[0] * zz - x) % prime
+    r = (p[1] * z * zz - y) % prime
+    if h == 0:
+        return _jdbl(q, prime, a) if r == 0 else (1, 1, 0)
+    hh = h * h % prime
+    hhh = h * hh % prime
+    x3 = (r * r - hhh - 2 * x * hh) % prime
+    return (x3, (r * (x * hh - x3) - y * hhh) % prime, z * h % prime)
+
+
 def ec_mul(p, k, prime, a=0):
-    acc = None
-    while k:
-        if k & 1:
-            acc = ec_add(acc, p, prime, a)
-        p = ec_add(p, p, prime, a)
-        k >>= 1
-    return acc
+    """k·p for k >= 0: MSB-first double-and-add in Jacobian coordinates,
+    one inversion at the end."""
+    if p is None or k == 0:
+        return None
+    q = (p[0], p[1], 1)
+    for bit in bin(k)[3:]:
+        q = _jdbl(q, prime, a)
+        if bit == "1":
+            q = _jadd_affine(q, p, prime, a)
+    x, y, z = q
+    if not z:
+        return None
+    zinv = pow(z, -1, prime)
+    zinv2 = zinv * zinv % prime
+    return (x * zinv2 % prime, y * zinv2 * zinv % prime)
 
 
 def generator(curve: CurveSpec):
