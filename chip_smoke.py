@@ -52,6 +52,10 @@ In order, each phase raising on failure (so the exit code is non-zero):
    to its negative, edge words 0, 1 and p-1); sw_running_sum over chunks
    of S = 8 and 16 (an identity lane, a lane of one point repeated, a
    lane of P, -P, .., a lane of edge values);
+3e. holds sw_tree_sum against its plain version, bit for bit, with
+   BLS12-381's and BLS12-377's constants, at the shapes of TREE_CASES
+   (as te_tree_sum in phase 3, and a member equal to its neighbour, so
+   that the first step doubles);
 4. drives the MSM main path through the user entry points at the
    benchmark's default size: n = 2^18 BLS12-377 G1 points, 1024 distinct
    base points (i+1)·G tiled, `multi_scalar_mult_init`, then a warm-up and
@@ -119,15 +123,19 @@ In order, each phase raising on failure (so the exit code is non-zero):
    G1 at n = 2^18 through `multi_scalar_mult_init` (c = 13: 21 windows,
    2^12 buckets in each full window), a warm-up and 4 timed batches, every
    result checked against the python-int oracle, each MSM launching
-   sw_gather_accumulate, sw_full_add, sw_running_sum and sw_combine and
-   no TE or NTT kernel (the sw_full_add launches per MSM are printed);
+   sw_gather_accumulate, sw_running_sum, sw_tree_sum and sw_combine, and
+   no sw_full_add, TE or NTT kernel (the sw_tree_sum and sw_full_add
+   launches per MSM are printed);
    BLS12-377 at 2^18 with te=False against the oracle and against the TE
    route's result for the same batch; a skewed 2^12 run (all scalars
    equal; half zero, half equal); `msm_jit_batch` with B = 4 at 2^16
    against four single MSMs; `kzg.commit_batch` on a BLS12-381 test SRS
    against `commit` row by row (and python ints); `msm_jit_static` with a
    too-small cap_total on equal scalars raising "occupancy"; one profiled
-   2^18 MSM; and the four kernels' rows at the path's shapes.
+   2^18 MSM; and the five kernels' rows at the path's shapes, sw_tree_sum
+   at every tree of one MSM with the A/B against the per-level
+   sw_full_add launches that summed them before (parent, new, new,
+   parent).
 
 10. (run after 7, so that no earlier profile is disturbed) drives
    Marlin batch verification at the benchmark's sizes
@@ -268,11 +276,18 @@ COLLAPSED_ROUTE = ("te_dbl_chain", "te_bucket_accumulate", "te_running_sum",
 # te_tree_sum launches an MSM may make: the triangle merge's two trees
 # and, at 2^26, the carry window's bit sums
 TREE_LAUNCHES_PER_MSM = 4
-# te_tree_sum's phase-3 shapes (rows, members, weight offset or None for
-# roots only): one member, one segment, several segments and a ragged one
+# the tree kernels' phase-3 and 3e shapes (rows, members, weight offset or
+# None for roots only): one member, one segment, several segments and a
+# ragged one
 TREE_CASES = ((1, 1, None), (1, 1, 0), (1, 1, 1), (3, 64, 0), (2, 64, 1),
               (2, 3 * 64 + 17, 1), (5, 1000, 0), (4, 777, None),
               (1, 8192, 0))
+# seconds a profiler window stays open before and after the call it
+# traces: the profiler keeps a device event only inside its window, with
+# the card's timestamps mapped onto the host clock, and in some processes
+# that mapping put the first kernel of a window opened just before its
+# launch outside the window (phase 8's chain lost it in every attempt)
+TRACE_MARGIN_S = 0.05
 # each port kernel's CUDA entry points (csrc/), to find them in a profile
 KERNEL_SYMBOLS = {"te_dbl_chain": ("k_dbl_chain",),
                   "te_bucket_accumulate": ("k_bucket_accumulate",),
@@ -284,6 +299,7 @@ KERNEL_SYMBOLS = {"te_dbl_chain": ("k_dbl_chain",),
                   "sw_gather_accumulate": ("k_sw_gather_accumulate",),
                   "sw_full_add": ("k_sw_full_add",),
                   "sw_running_sum": ("k_sw_running_sum",),
+                  "sw_tree_sum": ("k_sw_tree_segment", "k_sw_tree_finish"),
                   "sw_combine": ("k_sw_combine",),
                   "fr_ntt": ("k_fr_pass",),
                   "gl_ntt": ("k_gl_ntt",)}
@@ -473,35 +489,43 @@ def check_combine(curve, dev):
             raise AssertionError(f"{name} disagrees with its plain version")
 
 
-def check_tree_sum(curve, dev):
-    """Phase 3: te_tree_sum == its plain version at every shape of
-    TREE_CASES (random words; identity members, edge words 0, 1 and p-1),
-    the root and every bit sum."""
-    from zprize_tpu_torch.curve import te
+def check_tree_sum(curve, dev, group="te"):
+    """Phase 3 (group "te": te_tree_sum) and 3e ("sw": sw_tree_sum with
+    the curve's constants): the kernel == its plain version at every
+    shape of TREE_CASES (random words; identity members, edge words 0, 1
+    and p-1; for "sw" a member equal to its neighbour, so that the first
+    step doubles), the root and every bit sum."""
+    from zprize_tpu_torch.curve import sw, te
     from zprize_tpu_torch.field import fp
     from zprize_tpu_torch.msm import accum_kernel as ak
     f = curve.field
     nw = fp.n_words(f)
-    rng = random.Random(SEED + 11)
-    ident = te.pack(te.identity(curve, (), dev))
+    law, n_coords = (te, 4) if group == "te" else (sw, 3)
+    name = f"{group}_tree_sum"
+    kernel, plain = getattr(ak, name), getattr(ak, f"{name}_plain")
+    rng = random.Random(SEED + 11 + curve.b * (group == "sw"))
+    ident = law.pack(law.identity(curve, (), dev))
     results = {}
     for rows, k, first in TREE_CASES:
-        pts = random_elems(fp, f, (rows, k, 4), rng, dev)
+        pts = random_elems(fp, f, (rows, k, n_coords), rng, dev)
         if k > 2:
             pts[0, 1] = ident                      # an identity member
             for j, v in enumerate((0, 1, f.p - 1)):
-                pts[-1, k - 1 - j] = fp.raw_words(f, v, dev).expand(4, nw)
-        sums, bits = ak.te_tree_sum(curve, pts, first)
-        ref_sums, ref_bits = ak.te_tree_sum_plain(curve, pts, first)
+                pts[-1, k - 1 - j] = fp.raw_words(f, v, dev).expand(
+                    n_coords, nw)
+        if group == "sw" and k > 4:
+            pts[0, 3] = pts[0, 2]                  # P + P at step 0
+        sums, bits = kernel(curve, pts, first)
+        ref_sums, ref_bits = plain(curve, pts, first)
         err = max_abs_err(sums, ref_sums)
         if first is not None:
             err = max(err, max_abs_err(bits, ref_bits))
-        results[f"te_tree_sum rows={rows} k={k} first={first}"] = err
+        results[f"{name} rows={rows} k={k} first={first}"] = err
     torch.cuda.synchronize()
-    for name, err in results.items():
-        log(f"kernel vs plain: {name} max_abs_err={err}")
+    for label, err in results.items():
+        log(f"{curve.name} kernel vs plain: {label} max_abs_err={err}")
         if err != 0:
-            raise AssertionError(f"{name} disagrees with its plain version")
+            raise AssertionError(f"{label} disagrees with its plain version")
 
 
 def chain_row(name, k_pair, run, plain, bound_of):
@@ -973,13 +997,16 @@ def sw_path(dev):
         log(f"bls12_381 2^{SW_LOG} batch {k}: {times[-1]:.3f} ms, result "
             f"verified, launches {per_msm[-1]}")
     launches = all_launches()
+    # every SW kernel but sw_full_add, whose trees sw_tree_sum took over
+    route = [name for name in ak.SW_KERNELS if name != "sw_full_add"]
     for k, launched in enumerate(per_msm, 1):
         stray = {name: v for name, v in launched.items()
-                 if v and name not in ak.SW_KERNELS}
-        if stray or 0 in (launched[name] for name in ak.SW_KERNELS):
+                 if v and name not in route}
+        if stray or 0 in (launched[name] for name in route):
             raise AssertionError(f"bls12_381 MSM {k} launches {launched} "
                                  "are not the SW route's")
-    log(f"bls12_381 2^{SW_LOG} MSM: sw_full_add "
+    log(f"bls12_381 2^{SW_LOG} MSM: sw_tree_sum "
+        f"{per_msm[-1]['sw_tree_sum']}, sw_full_add "
         f"{per_msm[-1]['sw_full_add']}, sw_running_sum "
         f"{per_msm[-1]['sw_running_sum']}, sw_combine "
         f"{per_msm[-1]['sw_combine']} launches")
@@ -993,6 +1020,7 @@ def sw_path(dev):
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
         "launches_per_msm": per_msm[-1],
         "sw_full_add_per_msm": [m["sw_full_add"] for m in per_msm],
+        "sw_tree_sum_per_msm": [m["sw_tree_sum"] for m in per_msm],
         "oracle_checked_batches": BATCHES + 1,
     }
     summary["bls12_377_sw"] = bls377_sw_vs_te(dev)
@@ -1145,10 +1173,12 @@ def profile_call(label, fn, attempts=3, host_ops=True):
         before = port_launches()
         with profile(activities=[ProfilerActivity.CPU] * host_ops
                      + [ProfilerActivity.CUDA]) as prof:
+            time.sleep(TRACE_MARGIN_S)
             t0 = time.time()
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.time() - t0) * 1e3
+            time.sleep(TRACE_MARGIN_S)
         launched = {k: v - before[k] for k, v in port_launches().items()
                     if v > before[k]}
         by_kernel = device_kernels(prof)
@@ -1432,23 +1462,72 @@ def tree_work(k, first):
     return adds, len(seg_steps) + len(fin_steps)
 
 
+def tree_shape(name, run, plain, label, pts, first, add_mulmods, depth,
+               design_depth, lat):
+    """One tree-sum kernel (`run(pts, first)`) at one shape, timed beside
+    its plain version and checked against it.  Beside the time three
+    floors: the throughput bound (its adds at `add_mulmods` mulmods each
+    at the card's IMAD rate, or its bytes), the card's latency floor (the
+    critical path, `depth` dependent mulmods a step, at
+    MULMOD_IMAD_DEPTH dependent IMADs a mulmod) and the design floor (the
+    path at `design_depth` one-thread mulmods a step); `bound_ms` is the
+    larger of the first two."""
+    from zprize_tpu_torch.msm import accum_kernel as ak
+    rows, k = pts.shape[:2]
+    ms = timed(lambda: run(pts, first), 20)
+    t0 = time.time()
+    ref = plain(pts, first)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    got = run(pts, first)
+    err = max(max_abs_err(got[0], ref[0]),
+              0 if first is None else max_abs_err(got[1], ref[1]))
+    if err != 0:
+        raise AssertionError(f"{name} != plain at the {label}")
+    adds, steps = tree_work(k, first)
+    adds *= rows
+    n_out = 1 + (0 if first is None else ak.tree_bits(k, first))
+    thr_ms, thr_by = bound_ms(adds * add_mulmods, rows * (k + n_out)
+                              * pts[0, 0].numel() * 4)
+    card_ms = depth * steps * MULMOD_IMAD_DEPTH * lat["imad"]
+    design_ms = design_depth * steps * lat["mulmod"]
+    b_ms, b_by = max((thr_ms, thr_by), (card_ms, "latency"))
+    log(f"{name} {label} ({rows} x {k}, first {first}, {adds} adds, {steps}"
+        f" steps): {ms:.4f} ms (plain {plain_ms:.1f} ms, bound {b_ms:.4f} "
+        f"ms by {b_by}: throughput {thr_ms:.4f}, latency floor "
+        f"{card_ms:.5f}, design floor {design_ms:.4f}), kernel == plain")
+    return {"shape": label, "rows": rows, "k": k, "first": first,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "adds": adds,
+            "throughput_bound_ms": thr_ms, "depth_mulmods": depth * steps,
+            "latency_floor_ms": card_ms, "design_floor_ms": design_ms}
+
+
+def tree_kernel_row(name, replaces, launches, shapes, **extra):
+    """A tree kernel's row: its first shape's numbers, every shape under
+    "shapes"."""
+    head = shapes[0]
+    return {"name": name, "route": "cuda",
+            "source": f"zprize_tpu_torch/csrc/msm_{name[:2]}.cu",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in shapes),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": None, **extra, "shapes": shapes}
+
+
 def tree_row(curve, sums, c_lanes, launches, per_msm, lat):
-    """te_tree_sum at the merges' trees, each timed beside its plain
-    version and checked against it (bucket sums of the card's 2^26 run
-    stand in for the trees' members): the 2^26 triangle merge's V bit
-    sums (W x C chunk sums, first = 0) first, then under "shapes" its U
-    root, the 2^18 merge's V and U (1 x 8192) and the carry window's bit
-    sums (1 x 4, first = 1).  Beside each time three floors: the
-    throughput bound (its adds' mulmods at the card's IMAD rate, or its
-    bytes), the card's latency floor (the critical path, 3 mulmods a
-    step, at MULMOD_IMAD_DEPTH dependent IMADs a mulmod) and the design
-    floor (the path at one-thread mulmods); `bound_ms` is the larger of
-    the first two."""
+    """te_tree_sum at the merges' trees (`tree_shape`; bucket sums of the
+    card's 2^26 run stand in for the trees' members): the 2^26 triangle
+    merge's V bit sums (W x C chunk sums, first = 0) first, then under
+    "shapes" its U root, the 2^18 merge's V and U (1 x 8192) and the
+    carry window's bit sums (1 x 4, first = 1).  A TE add is 3 mulmods
+    deep (the four first products, T1 T2 k, the closing products), and
+    the group of 4 threads runs one product of each level a thread."""
     from zprize_tpu_torch.field import fp
     from zprize_tpu_torch.msm import accum_kernel as ak
     n_win = sums.shape[0]
     nw = fp.n_words(curve.field)
-    pt_bytes = 4 * 4 * nw
     flat = sums.reshape(-1, 4, nw)
     shapes = []
     for label, rows, k, first in (
@@ -1458,46 +1537,140 @@ def tree_row(curve, sums, c_lanes, launches, per_msm, lat):
             (f"2^{N_LOG} merge U", 1, 8192, None),
             (f"2^{PRIZE_LOG} carry window", 1, 4, 1)):
         pts = flat[:rows * k].reshape(rows, k, 4, nw).contiguous()
-        ms = timed(lambda: ak.te_tree_sum(curve, pts, first), 20)
-        t0 = time.time()
-        ref = ak.te_tree_sum_plain(curve, pts, first)
-        torch.cuda.synchronize()
-        plain_ms = (time.time() - t0) * 1e3
-        got = ak.te_tree_sum(curve, pts, first)
-        err = max(max_abs_err(got[0], ref[0]),
-                  0 if first is None else max_abs_err(got[1], ref[1]))
-        if err != 0:
-            raise AssertionError(f"te_tree_sum != plain at the {label}")
-        adds, steps = tree_work(k, first)
-        adds *= rows
-        n_out = 1 + (0 if first is None else ak.tree_bits(k, first))
-        thr_ms, thr_by = bound_ms(adds * MULMODS["add"],
-                                  rows * (k + n_out) * pt_bytes)
-        depth = 3 * steps
-        card_ms = depth * MULMOD_IMAD_DEPTH * lat["imad"]
-        b_ms, b_by = max((thr_ms, thr_by), (card_ms, "latency"))
-        shapes.append({"shape": label, "rows": rows, "k": k, "first": first,
-                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                       "bound_ms": b_ms, "bound_by": b_by, "adds": adds,
-                       "throughput_bound_ms": thr_ms,
-                       "depth_mulmods": depth, "latency_floor_ms": card_ms,
-                       "design_floor_ms": depth * lat["mulmod"]})
-        log(f"te_tree_sum {label} ({rows} x {k}, first {first}, {adds} adds,"
-            f" {steps} steps): {ms:.4f} ms (plain {plain_ms:.1f} ms, bound "
-            f"{b_ms:.4f} ms by {b_by}: throughput {thr_ms:.4f}, latency "
-            f"floor {card_ms:.5f}, design floor {depth * lat['mulmod']:.4f})"
-            ", kernel == plain")
-    head = shapes[0]
-    return {"name": "te_tree_sum", "route": "cuda",
-            "source": "zprize_tpu_torch/csrc/msm_te.cu",
-            "replaces": "zprize_tpu/msm/accum_kernel.py:791 (the "
-                        "per-level launches of the merges' trees)",
-            "launches": launches, "max_abs_err": max(
-                r["max_abs_err"] for r in shapes),
-            "ms": head["ms"], "plain_ms": head["plain_ms"],
-            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-            "library_ms": None, "launches_per_msm": per_msm,
-            "shapes": shapes}
+        shapes.append(tree_shape(
+            "te_tree_sum", lambda x, f: ak.te_tree_sum(curve, x, f),
+            lambda x, f: ak.te_tree_sum_plain(curve, x, f), label, pts,
+            first, MULMODS["add"], 3, 3, lat))
+    return tree_kernel_row(
+        "te_tree_sum", "zprize_tpu/msm/accum_kernel.py:791 (the per-level "
+        "launches of the merges' trees)", launches, shapes,
+        launches_per_msm=per_msm)
+
+
+def parent_sum_rows(curve, pts):
+    """The SW trees as the port summed them before sw_tree_sum (the
+    former `pippenger._sum_rows`): points (m, ..., 3, nw) reduced along
+    axis 0 in place, one `sw_full_add` launch a level (the last half onto
+    the first, the middle row of an odd count riding along).  Kept here
+    for the A/B of `sw_tree_row`."""
+    from zprize_tpu_torch.msm import accum_kernel as ak
+    m = pts.shape[0]
+    skip = torch.zeros(pts[0].shape[:-2].numel(), dtype=torch.int32,
+                       device=pts.device)
+    flat = pts.reshape(m, -1, *pts.shape[-2:])
+    while m > 1:
+        half = m // 2
+        ak.sw_full_add(curve, flat[:half].reshape(-1, *pts.shape[-2:]),
+                       flat[m - half:m].reshape(-1, *pts.shape[-2:]),
+                       skip.repeat(half))
+        m -= half
+    return pts[0]
+
+
+def parent_sw_trees(curve, calls):
+    """What the port ran before sw_tree_sum for the same members as the
+    `calls` [(pts, first)] of one SW MSM: a roots-only call and the
+    first = 0 call after it (a running-sum merge's U_q and T_q) as one
+    `parent_sum_rows` over the U_q beside masked copies of the T_q, one
+    row a bit; a first = 1 call (a narrow merge) as the scan of
+    `sw_full_add` launches over groups of up to 128 bucket columns, then
+    `parent_sum_rows` over the columns; any other roots-only call (slice
+    sums) as `parent_sum_rows` over its members."""
+    from zprize_tpu_torch.curve import sw
+    from zprize_tpu_torch.msm import accum_kernel as ak
+    i = 0
+    while i < len(calls):
+        pts, first = calls[i]
+        n_win, k, tail = pts.shape[0], pts.shape[1], pts.shape[-2:]
+        dev = pts.device
+        ident = sw.pack(sw.identity(curve, (), dev))
+        if first is None and i + 1 < len(calls) and calls[i + 1][1] == 0:
+            t_q = calls[i + 1][0]
+            n_bits = max(1, (k - 1).bit_length())
+            q = torch.arange(k, device=dev)
+            has_bit = ((q >> torch.arange(n_bits, device=dev)[:, None])
+                       & 1).bool()
+            rows = torch.cat([
+                pts.transpose(0, 1)[:, None],
+                torch.where(has_bit.t()[:, :, None, None, None],
+                            t_q.transpose(0, 1)[:, None], ident)], dim=1)
+            parent_sum_rows(curve, rows.contiguous())
+            i += 2
+            continue
+        if first == 1:
+            n_bits = max(1, k.bit_length())
+            steps = max(1, k // 128)
+            cols = k // steps
+            ids = torch.arange(1, k + 1, device=dev).reshape(steps, cols)
+            bits = torch.arange(n_bits, device=dev)
+            skip = (((ids[:, :, None] >> bits) & 1) == 0).to(torch.int32)
+            acc = sw.pack(sw.identity(curve, (cols, n_bits, n_win), dev))
+            flat = acc.reshape(-1, *tail)
+            for t in range(steps):
+                q = pts[:, t * cols:(t + 1) * cols].transpose(0, 1)
+                q = q[:, None].expand(cols, n_bits, n_win, *tail)
+                sk = skip[t][:, :, None].expand(cols, n_bits, n_win)
+                ak.sw_full_add(curve, flat, q.reshape(-1, *tail).contiguous(),
+                               sk.reshape(-1).contiguous())
+            parent_sum_rows(curve, acc)
+        else:
+            parent_sum_rows(curve, pts.transpose(0, 1).clone(
+                memory_format=torch.contiguous_format))
+        i += 1
+
+
+def sw_tree_row(curve, p, aff, s, launches, per_msm, lat):
+    """sw_tree_sum at the trees of one 2^18 BLS12-381 MSM: the members of
+    every call the MSM makes (recorded from `pippenger.msm_sw` on the
+    batch `s`), each timed beside its plain version and checked against
+    it (`tree_shape`; the full group's bit sums of its T_q first).  An SW
+    add is 2 mulmods deep (the six first products, then the six closing
+    ones: the products by 3b are additions), and the group runs two
+    products of each level a thread (4 on a thread's chain).  Then the
+    A/B: the MSM's calls against what the port ran before for the same
+    members (`parent_sw_trees`), in the order parent, new, new, parent."""
+    from zprize_tpu_torch.msm import accum_kernel as ak
+    from zprize_tpu_torch.msm import pippenger
+    calls = []
+    orig = pippenger.sw_tree_sum
+
+    def record(curve_, pts, first=None):
+        calls.append((pts.clone(), first))
+        return orig(curve_, pts, first)
+
+    pippenger.sw_tree_sum = record
+    try:
+        pippenger.msm_sw(curve, p, aff.inf, s)
+    finally:
+        pippenger.sw_tree_sum = orig
+    head = max(range(len(calls)), key=lambda j: (calls[j][1] == 0,
+                                                 calls[j][0].numel()))
+    shapes = [tree_shape(
+        "sw_tree_sum", lambda x, f: ak.sw_tree_sum(curve, x, f),
+        lambda x, f: ak.sw_tree_sum_plain(curve, x, f),
+        f"call {j} of the 2^{SW_LOG} MSM", pts, first, MULMODS["sw_add"],
+        2, 4, lat) for j, (pts, first) in
+        [(head, calls[head])] + [(j, c) for j, c in enumerate(calls)
+                                 if j != head]]
+
+    def new():
+        for pts, first in calls:
+            ak.sw_tree_sum(curve, pts, first)
+
+    def parent():
+        parent_sw_trees(curve, calls)
+
+    ab = [timed(fn, 10) for fn in (parent, new, new, parent)]
+    log(f"sw_tree_sum A/B, the trees of one 2^{SW_LOG} MSM ({len(calls)} "
+        f"calls): parent {ab[0]:.4f}, new {ab[1]:.4f}, new {ab[2]:.4f}, "
+        f"parent {ab[3]:.4f} ms")
+    return tree_kernel_row(
+        "sw_tree_sum", "zprize_tpu/msm/accum_kernel.py:138 (the per-level "
+        "launches of the merges' trees: sum_points in merge_buckets_pallas, "
+        "zprize_tpu/msm/accum_kernel.py:185, and merge_buckets_all, "
+        "zprize_tpu/msm/pippenger.py:227)", launches, shapes,
+        launches_per_msm=per_msm, calls_per_msm=len(calls),
+        ab_ms={"parent": [ab[0], ab[3]], "new": [ab[1], ab[2]]})
 
 
 def final_combine_row(curve, sums, c, launches, per_msm, lat):
@@ -1538,13 +1711,16 @@ def final_combine_row(curve, sums, c, launches, per_msm, lat):
             **extra, "launches_per_msm": per_msm}
 
 
-def sw_rows(curve, ctx, aff, batch, launches, lat, dev):
-    """The four SW kernels at the 2^18 path's shapes, timed beside their
+def sw_rows(curve, ctx, aff, batch, launches, per_msm, lat, dev):
+    """The five SW kernels at the 2^18 path's shapes, timed beside their
     plain versions and bounds, and checked against the plain versions:
     sw_gather_accumulate over the full-width window group of one batch,
-    sw_running_sum over that group's merge chunks, sw_full_add at the
-    merge's widest tree level, sw_combine over the MSM's window sums (one
-    lane; bound: `fold_bound` with the probes' latencies `lat`)."""
+    sw_running_sum over that group's merge chunks, sw_tree_sum at the
+    MSM's trees with the A/B against the per-level launches before it
+    (`sw_tree_row`), sw_full_add at the widest of those levels (the
+    full group's tree, which it no longer runs), sw_combine over the
+    MSM's window sums (one lane; bound: `fold_bound` with the probes'
+    latencies `lat`)."""
     from zprize_tpu_torch.field import fp
     from zprize_tpu_torch.msm import accum_kernel as ak
     from zprize_tpu_torch.msm import pippenger, probe, te_path
@@ -1609,7 +1785,10 @@ def sw_rows(curve, ctx, aff, batch, launches, lat, dev):
         lambda: ak.sw_running_sum_plain(curve, chunks), 10,
         lanes * 2 * (steps - 1) * MULMODS["sw_add"],
         chunks.numel() * 4 + 2 * lanes * pt_bytes, lanes=lanes, steps=steps)
-    # the merge's widest tree level: C/2 x (1 + bits) x W lanes
+    out.append(sw_tree_row(curve, p, aff, s, launches["sw_tree_sum"],
+                           per_msm["sw_tree_sum"], lat))
+    # the widest level of the full group's tree as per-level launches ran
+    # it (parent_sw_trees): C/2 x (1 + bits) x W lanes
     lanes = n_chunks // 2 * (1 + (n_chunks - 1).bit_length()) * len(ws)
     flat = sums.reshape(-1, 3, nw)
     idx = torch.arange(lanes, device=dev)
@@ -2826,6 +3005,10 @@ def main():
         for lanes in (4096, 1000):
             check_sw_kernels(sw_curve, dev, lanes)
     log(f"phase 3d: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    for sw_curve in (BLS12_381_G1, BLS12_377_G1):
+        check_tree_sum(sw_curve, dev, "sw")
+    log(f"phase 3e: {time.time() - t0:.1f} s")
     check_ntt(dev)
     ntt_prof = profile_ntt(dev)
     check_gl_ntt(dev)
@@ -2840,7 +3023,8 @@ def main():
     sw_ctx, sw_aff, sw_batch, sw_launches, sw_msm = sw_path(dev)
     sw_msm["profile"] = profile_msm(sw_ctx, sw_batch)
     sw_kernel_rows = sw_rows(BLS12_381_G1, sw_ctx, sw_aff, sw_batch,
-                             sw_launches, lat, dev)
+                             sw_launches, sw_msm["launches_per_msm"], lat,
+                             dev)
     log(f"phase 9: {time.time() - t0:.1f} s")
     del sw_ctx, sw_aff
     torch.cuda.empty_cache()

@@ -5,6 +5,8 @@ python-int oracle.
 Points are the generator chain P_i = (i+1)·G with one identity lane, so
 the oracle is one scalar multiplication: (sum_i s_i·(i+1) mod r)·G."""
 
+import hashlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -35,6 +37,11 @@ IDENT = 3
 REF_XY_256 = (
     0x002202FDCF91F6095FF930F66E91EA7E1310D7E03D28D4C11E616053F5A157FB3D1EF58CFD9A0031D1667333296B3743,
     0x00705566583A9B33D9247368DF71D5115F64CDE061F8482909182BF8B5D35E189EB2D8BDBA97403FCDEBA89FE7000D06)
+# sha256 of that run's collapsed table (m*n = 6144 rows) as this port's
+# Montgomery words, over the rows both packages read;
+# test_pinned_reference_table_at_256 re-derives it
+REF_TABLE_256_SHA256 = (
+    "688a8293b2079887aa227a068c2044d9fe0020aedc42e52316a59ca7b53c3901")
 
 
 def _inputs(n, seed):
@@ -87,7 +94,53 @@ def test_pinned_reference_msm_at_256():
             int(ref_fp.to_ints(REF_CURVE.field, ref_res.y)[()])) == REF_XY_256
 
 
+def _kept_rows(p):
+    """The table rows the reference and the port agree on: all but the
+    identity lane's unread rows at blocks j >= 1 (see
+    test_torch_msm_kernels.test_dbl_chain_table_matches_reference)."""
+    return [r for r in range(p.m * p.n) if r % p.n != IDENT or r < p.n]
+
+
+def _table_digest(table):
+    return hashlib.sha256(table.numpy().tobytes()).hexdigest()
+
+
+def _packed_like_reference(table):
+    """A (m*n, 3, nw) table -> the reference's `PreparedTe.packed` layout,
+    (3h, m*n) with each plane's canonical limbs u16-packed in split-half
+    order (limb j in the low half of word j, limb j + h in the high)."""
+    h = (CURVE.field.n_limbs + 1) // 2
+    limbs = convert.elements_to_reference(CURVE.field, table)
+    limbs = np.pad(limbs, ((0, 0), (0, 0), (0, 2 * h - limbs.shape[-1])))
+    words = limbs[..., :h] | (limbs[..., h:] << 16)
+    return words.reshape(table.shape[0], 3 * h).T.astype(np.uint32)
+
+
 def test_table_carried_from_reference_gives_same_msm(slice_256):
+    """The port's table equals the reference's on the rows both read (its
+    pinned digest; test_pinned_reference_table_at_256 carries the
+    reference's own table and re-derives it), comes back through
+    `convert.prepared_from_reference` from the reference's layout, and the
+    carried table gives the same MSM."""
+    ctx, scalars, ours, _ = slice_256
+    p = ctx.prepared
+    assert _table_digest(p.table[_kept_rows(p)]) == REF_TABLE_256_SHA256
+    carried = convert.prepared_from_reference(
+        CURVE, _packed_like_reference(p.table), p.c, p.g, p.m, p.n,
+        device="cpu")
+    assert torch.equal(carried.table, p.table)
+    res = pippenger.msm(CURVE, ctx.points,
+                        convert.scalars_from_reference(CURVE, scalars, "cpu"),
+                        prepared=carried)
+    assert sw.to_affine_ints(CURVE, res) == sw.to_affine_ints(CURVE, ours)
+
+
+@pytest.mark.slow
+def test_pinned_reference_table_at_256(slice_256):
+    """The reference's collapsed table (prepare_points(collapse=True), about
+    27 s here) carried into the port: its digest on the rows both read is
+    the pinned one, and the MSM over it (the reference's identity rows
+    included) equals the port's."""
     ctx, scalars, ours, _ = slice_256
     pts, _, _ = _inputs(256, 11)
     ref_prep = ref_pippenger.prepare_points(REF_CURVE, _ref_affine(pts),
@@ -96,10 +149,7 @@ def test_table_carried_from_reference_gives_same_msm(slice_256):
         CURVE, np.asarray(ref_prep.packed), ref_prep.c, ref_prep.g,
         ref_prep.m, ref_prep.n, device="cpu")
     p = ctx.prepared
-    # equal but for the identity lane's unread rows at blocks j >= 1
-    # (see test_torch_msm_kernels.test_dbl_chain_table_matches_reference)
-    keep = [r for r in range(p.m * p.n) if r % p.n != IDENT or r < p.n]
-    assert torch.equal(carried.table[keep], p.table[keep])
+    assert _table_digest(carried.table[_kept_rows(p)]) == REF_TABLE_256_SHA256
     res = pippenger.msm(CURVE, ctx.points,
                         convert.scalars_from_reference(CURVE, scalars, "cpu"),
                         prepared=carried)

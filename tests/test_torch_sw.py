@@ -157,25 +157,69 @@ def test_scalar_multiplication_and_sums_match_oracle():
 def small_case():
     """The small case of tests/test_fp_kernel.py (`_small_msm_case`): 64
     points (8 subgroup points repeated, the points of
-    ec_ref.random_subgroup_points) on BLS12-377, seeded scalars,
-    c = 6; its digits and grouping from the reference, and the
-    reference's bucket sums over every rank (cap 64)."""
-    curve = REF_377
+    ec_ref.random_subgroup_points) on BLS12-377, seeded scalars, c = 6;
+    the reference's digits (`signed_digits`), grouping
+    (`bucket_counts_all`) and bucket sums over every rank
+    (`accumulate_pass_all`, cap 64), here on python ints and numpy
+    (test_small_case_is_the_references holds the reference's own, about
+    10 s of JAX, to them)."""
+    curve = BLS12_377_G1
+    prime = curve.field.p
     rng = random.Random(5)
     base = oracle.subgroup_points(curve, 8, 5)
     pts = base * 8
     scalars = [rng.randrange(curve.order) for _ in range(64)]
-    aff = _ref_affine(curve, pts)
-    s = ref_fp.from_ints(curve.scalar, scalars)
     c = 6
+    half = 1 << (c - 1)
+    n_win = pippenger.num_windows(curve, c)
+    digits = []
+    for k in scalars:                      # MSB-negated signed windows
+        row, carry = [], 0
+        for w in range(n_win):
+            raw = ((k >> (w * c)) & ((1 << c) - 1)) + carry
+            carry = int(raw >= half)
+            row.append(raw - (carry << c))
+        digits.append(row)
+    digits = np.array(digits, dtype=np.int32).T                # (W, n)
+    perm = np.argsort(np.abs(digits), axis=1, kind="stable")
+    key = np.take_along_axis(np.abs(digits), perm, 1)
+    ids = np.arange(half + 1)
+    starts = np.stack([np.searchsorted(r, ids) for r in key])
+    counts = np.stack([np.searchsorted(r, ids, side="right")
+                       for r in key]) - starts
+    sums = []
+    for w in range(n_win):
+        acc = [None] * half
+        for i, d in enumerate(digits[w].tolist()):
+            if d:
+                q = pts[i] if d > 0 else ec_ref.ec_neg(pts[i], prime)
+                acc[abs(d) - 1] = ec_ref.ec_add(acc[abs(d) - 1], q, prime)
+        sums += acc
+    return {"pts": pts, "c": c, "digits": digits,
+            "perm": perm.astype(np.int32), "starts": starts.astype(np.int32),
+            "counts": counts.astype(np.int32), "sums": sums}
+
+
+@pytest.mark.slow
+def test_small_case_is_the_references(small_case):
+    """The reference's digits, grouping and bucket sums of the small case
+    equal the python-int ones the fast tier holds the port against."""
+    curve = REF_377
+    aff = _ref_affine(curve, small_case["pts"])
+    rng = random.Random(5)
+    oracle.subgroup_points(BLS12_377_G1, 8, 5)
+    s = ref_fp.from_ints(curve.scalar, [rng.randrange(curve.order)
+                                        for _ in range(64)])
+    c = small_case["c"]
     n_win = ref_pippenger.num_windows(curve, c)
     digits = ref_pippenger.signed_digits(curve, c, n_win, s)
     perm, starts, counts, _ = ref_pippenger.bucket_counts_all(c, digits)
     sums = ref_pippenger.accumulate_pass_all(
         curve, c, 64, aff.x, aff.y, digits, perm, starts, counts)
-    return {"pts": pts, "c": c, "digits": np.asarray(digits),
-            "perm": np.asarray(perm), "starts": np.asarray(starts),
-            "counts": np.asarray(counts), "sums": _ref_ints(curve, sums)}
+    for name, ref in (("digits", digits), ("perm", perm),
+                      ("starts", starts), ("counts", counts)):
+        assert np.array_equal(np.asarray(ref), small_case[name]), name
+    assert _ref_ints(curve, sums) == small_case["sums"]
 
 
 def test_gather_accumulate_plain_matches_reference(small_case):

@@ -1,10 +1,11 @@
 """The plain versions of the SW route's merge and combine kernels
-(msm/accum_kernel.py: sw_running_sum, sw_combine), the dedicated a = 0
-doubling they use (curve/sw.py: dbl_a0) and the merge built on them
-(msm/pippenger.py: merge_buckets_all), against step-by-step walks of
-`sw_full_add_plain` (word for word) and python-int oracles, on the CPU.
-The hand-written kernels are held against these plain versions on the
-card by chip_smoke.py, phase 3d.  Exact: tolerance 0."""
+(msm/accum_kernel.py: sw_running_sum, sw_tree_sum, sw_combine), the
+dedicated a = 0 doubling they use (curve/sw.py: dbl_a0) and the merges
+built on them (msm/pippenger.py: merge_buckets_all, the slice sums of
+window_sums_sw), against step-by-step walks of `sw_full_add_plain` (word
+for word) and python-int oracles, on the CPU.  The hand-written kernels
+are held against these plain versions on the card by chip_smoke.py,
+phases 3d and 3e.  Exact: tolerance 0."""
 
 import pytest
 import torch
@@ -125,23 +126,94 @@ def _count(monkeypatch, name):
     return calls
 
 
+@pytest.mark.parametrize("name", sorted(CURVES))
+@pytest.mark.parametrize("rows, k, first", [
+    (1, 1, None), (1, 1, 1),               # one member
+    (2, 64, 0),                            # one whole segment
+    (1, 63, 1),                            # weight 63 fills the segment
+    (2, 200, 1),                           # four segments, the last ragged
+    (1, 130, None)],                       # roots only, three segments
+    ids=["K1", "K1 first1", "R2 K64 first0", "K63 first1", "R2 K200 first1",
+         "K130 root"])
+def test_tree_sum_plain_matches_ints(name, rows, k, first):
+    """sw_tree_sum (plain on the CPU) against python ints: each row's sum
+    and every bit sum S_j = sum of the members whose weight first + m has
+    bit j, the identity where none has; members k·G with k in 0..64 (0 the
+    identity) at lane-varying projective scales; at first = 0 the root
+    words do not depend on whether the bits are asked for."""
+    curve = CURVES[name]
+    ks = (torch.arange(rows * k).reshape(rows, k) * 11 + 5 * rows) % (
+        CHAIN + 1)
+    pts = _multiples(curve, ks)
+    ak.reset_launches()
+    sums, bits = ak.sw_tree_sum(curve, pts, first)
+    assert set(ak.launches.values()) == {0}             # no kernel on CPU
+    assert _ints(curve, sums) == _times_g(curve, ks.sum(1).tolist())
+    if first is None:
+        assert bits is None
+        return
+    n_bits = ak.tree_bits(k, first)
+    assert bits.shape == (n_bits, rows, 3, fp.n_words(curve.field))
+    for j in range(n_bits):
+        assert _ints(curve, bits[j]) == _times_g(curve, [
+            sum(v for m, v in enumerate(row) if (first + m) >> j & 1)
+            for row in ks.tolist()]), j
+    if first == 0:
+        assert torch.equal(ak.sw_tree_sum(curve, pts)[0], sums)
+
+
+def _count(monkeypatch, name):
+    calls = []
+    fn = getattr(pippenger, name)
+    monkeypatch.setattr(pippenger, name,
+                        lambda *a: calls.append(1) or fn(*a))
+    return calls
+
+
 @pytest.mark.parametrize("n_win, nbe, running_sum", [(2, 1024, True),
                                                      (3, 64, False)])
 def test_merge_matches_ints(monkeypatch, n_win, nbe, running_sum):
     """merge_buckets_all: sum_b b·B_b per window on python ints, through
     the chunked running sum at 2 windows x 1024 buckets (the split of
-    te_path.triangle_split: 128 chunks of 8) and through the
-    bit-decomposed scan at 3 x 64; either way one sw_combine fold."""
+    te_path.triangle_split: 128 chunks of 8; two sw_tree_sum calls, the U
+    root and the T_q's bit sums) and through the bit sums of one
+    sw_tree_sum call at 3 x 64; either way one sw_combine fold."""
     curve = BLS12_381_G1
     ks = (torch.arange(n_win * nbe).reshape(n_win, nbe) * 7 + 3) % (CHAIN + 1)
     sums = _multiples(curve, ks)
     rs = _count(monkeypatch, "sw_running_sum")
+    tree = _count(monkeypatch, "sw_tree_sum")
     cb = _count(monkeypatch, "sw_combine")
     merged = pippenger.merge_buckets_all(curve, 13, sums)
     assert (te_path.triangle_split(n_win, nbe) is not None) == running_sum
-    assert (len(rs), len(cb)) == (int(running_sum), 1)
+    assert (len(rs), len(tree), len(cb)) == (int(running_sum),
+                                             1 + int(running_sum), 1)
     assert _ints(curve, merged) == _times_g(curve, [
         sum((b + 1) * k for b, k in enumerate(row)) for row in ks.tolist()])
+
+
+def test_window_sums_sliced_match_ints(monkeypatch):
+    """window_sums_sw on a group whose longest run exceeds its target
+    (every point of row 0 in bucket 3, some negated): the points are cut
+    into slices, each slice's window sum merged on its own, and the
+    slices' sums added by one roots-only sw_tree_sum call; each row's sum
+    is sum_i d_i·P_i on python ints, P_i = (i+1)·G."""
+    curve = BLS12_381_G1
+    n, c = 130, 4
+    chain = oracle.generator_chain(curve, n)
+    px = fp.from_ints(curve.field, [q[0] for q in chain])
+    py = fp.from_ints(curve.field, [q[1] for q in chain])
+    g = torch.Generator().manual_seed(3)
+    digits = torch.stack([
+        torch.where(torch.arange(n) % 5 == 1, -3, 3),
+        torch.randint(-8, 8, (n,), generator=g)]).to(torch.int32)
+    digits[0, 7] = 0
+    tree = _count(monkeypatch, "sw_tree_sum")
+    got = pippenger.window_sums_sw(curve, c, px, py, digits, {8: [0, 1]})
+    assert len(tree) == 2                  # the narrow merge, the slice sum
+    assert _ints(curve, got) == _times_g(curve, [
+        sum(int(d) * (i + 1) for i, d in enumerate(row))
+        for row in digits.tolist()])
 
 
 def test_new_wrappers_check_their_inputs():
@@ -161,6 +233,16 @@ def test_new_wrappers_check_their_inputs():
         ak.sw_combine(curve, pts[:0], 2)
     with pytest.raises(ValueError, match="unsupported device"):
         ak.sw_combine(curve, pts.to("meta"), 2)
+    with pytest.raises(ValueError, match="pts"):         # (L, 3, nw): no K
+        ak.sw_tree_sum(curve, pts[0])
+    with pytest.raises(ValueError, match="pts"):         # K = 0
+        ak.sw_tree_sum(curve, pts[:, :0].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        ak.sw_tree_sum(curve, pts.transpose(0, 1))
+    with pytest.raises(ValueError, match="first"):
+        ak.sw_tree_sum(curve, pts, -1)
+    with pytest.raises(TypeError):
+        ak.sw_tree_sum(curve, pts.long())
     # the kernels' instantiations: 3b = 3 (BLS12-377) and 12 (BLS12-381)
     assert [ak._sw_b3(c) for c in (BLS12_377_G1, BLS12_381_G1)] == [3, 12]
     with pytest.raises(ValueError, match="3b"):

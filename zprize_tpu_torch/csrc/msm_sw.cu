@@ -1,8 +1,9 @@
 // Short-Weierstrass (y^2 = x^3 + b, a = 0) MSM kernels for Hopper: the
 // bucket accumulate, the complete add, the bucket merge's running sums and
-// the window combine of the SW route.
+// trees, and the window combine of the SW route.
 //
-// Four kernels, each with a plain C launcher that ctypes binds
+// Five kernels (the tree sum in two launches), each with a plain C
+// launcher that ctypes binds
 // (zprize_tpu_torch/msm/accum_kernel.py holds the wrappers and the plain
 // PyTorch version of each).  A launcher takes device pointers, sizes, the
 // curve's 3b and the stream, allocates nothing, launches on that stream
@@ -19,7 +20,7 @@
 // zprize_tpu_torch/curve/sw.py (add_mixed, add, dbl_a0): keep them in
 // lockstep, since kernel and plain version must agree word for word.
 //
-// What bounds all four on an H100: 32-bit integer multiplies.  One field
+// What bounds them on an H100: 32-bit integer multiplies.  One field
 // multiplication (mulmod) is 588 IMAD slots (csrc/fq.cuh).  A mixed add
 // is 11 mulmods and a full add 12; the two products by the small constant
 // 3b of each add run as a chain of modular additions (3b = 12 for
@@ -31,11 +32,13 @@
 // csrc/msm_te.cu: one thread per independent chain with the whole point
 // in registers, 128-thread blocks.  The gather keeps its next row in
 // flight (cp.async into a two-stage ring, csrc/ring.cuh); the bucket
-// merge walks chunks of buckets with both running sums in registers; the
-// window combine folds all windows in one launch.  Measured on an H100 at
-// the 2^18 BLS12-381 path's shapes (PERF.md): the gather at 55 % of its
-// bound, the running sum at 22 % (9,728 lanes: under one wave), the
-// final combine one thread's serial chain of 2.37 ms.
+// merge walks chunks of buckets with both running sums in registers; its
+// trees run an up-sweep in shared memory, each add on a group of 4
+// threads; the window combine folds all windows in one launch.  Measured
+// on an H100 at the 2^18 BLS12-381 path's shapes (PERF.md): the gather at
+// 55 % of its bound, the running sum at 22 % (9,728 lanes: under one
+// wave), the trees 0.06-0.07 ms a call, the final combine one thread's
+// serial chain of 2.37 ms.
 
 #include <cuda_runtime.h>
 
@@ -351,6 +354,231 @@ __global__ void __launch_bounds__(BLOCK)
   store_pt(out + i * PT_WORDS, acc);
 }
 
+// sw_tree_sum: replaces the per-level make_full_add launches
+// (zprize_tpu/msm/accum_kernel.py) through which the SW merges reduce
+// their trees: sum_points over the group columns and the per-bit sums of
+// merge_buckets_pallas, the bit-decomposed merge_buckets_all
+// (zprize_tpu/msm/pippenger.py), and the slice sums.  It computes the row
+// sums of pts (rows, k, 3, 12) and, for a weight offset `first`, the bit
+// sums S_j[r] = sum of the members m whose weight first + m has bit j
+// set, the identity (0 : 1 : 0) where none has.
+//
+// The order of the adds is sw_tree_sum_plain's (msm/accum_kernel.py), so
+// the words agree: the up-sweep of te_tree_sum (csrc/msm_te.cu) on the SW
+// group law.  Member m sits in slot first + m of its row, the slots are
+// cut into segments of TREE_SEG, and each segment is summed in place in
+// shared memory: at step t, x[L] += x[R] for L = 2 j 2^t, R = L + 2^t,
+// and with bits also x[L + 2^b] += x[R + 2^b] for b < t, so that x[0]
+// ends as the segment's root and x[2^b] as its part of S_b.  An absent
+// right operand leaves the left as it is, an absent left takes the
+// right's words: no identity is materialised or added.  A second kernel
+// runs the same up-sweep across the segments of each row, one block per
+// (row, component): the roots (with the bits above the segment) and,
+// apart, each bit's partials.
+//
+// What bounds it: the chain, not the multiplies.  About 2k full adds a
+// row with bits (k without), 12 mulmods each: the 2^18 BLS12-381 path's
+// widest tree (19 rows of 512 chunk sums, 9 bits) is 0.0037 ms of the
+// card's multiply rate, while its critical path is log2(first + k)
+// steps of one add plus a second launch.  Design: a group of TREE_GROUP
+// = 4 threads of one warp runs one add.  Thread c (0, 1, 2: X, Y, Z; the
+// fourth shadows the third and stores nothing) reads both operands where
+// they lie and forms two of the six independent first products (t_c =
+// P_c Q_c and the cross product s_c of the pair xy, yz or xz); the group
+// trades them through shared-memory slots under __syncwarp of its mask;
+// each thread then forms the tail's additions and the two closing
+// products of its own output coordinate (X3 = m_xy u - m_yz w, Y3 = v u
+// + t3 w, Z3 = m_yz v + m_xy t3).  An add is 4 mulmods deep on the chain
+// instead of 12.  A segment of 64 slots (9 KB) sits in shared memory
+// under a block of 32 groups; the segments' partials go through global
+// memory to the second launch.  ptxas: 127 and 128 registers, no stack
+// frame, 21,968 bytes of shared memory a segment block and 12,496 a
+// finish block.  Measured on an H100 (PERF.md): 0.071 ms at the 2^18
+// path's widest tree (19 rows of 512, 9 bit sums), about twice its design
+// floor; the trees of one MSM 0.23-0.37 ms, where the per-level
+// sw_full_add launches took 2.8-5.5 ms.
+constexpr int TREE_GROUP = 4;
+constexpr int TREE_GROUPS = BLOCK / TREE_GROUP;
+constexpr int TREE_SEG_LOG = 6;
+constexpr int TREE_SEG = 1 << TREE_SEG_LOG;
+
+// Thread t's slot h (0: t_c, 1: s_c) holds NW words strided by the
+// block, so that a warp's stores hit distinct banks.
+__device__ __forceinline__ void put_slot(uint32_t* slots, int h,
+                                         const Fq& x) {
+#pragma unroll
+  for (int j = 0; j < NW; ++j)
+    slots[(h * NW + j) * BLOCK + threadIdx.x] = x.v[j];
+}
+
+__device__ __forceinline__ Fq get_slot(const uint32_t* slots, int h, int t) {
+  Fq r;
+#pragma unroll
+  for (int j = 0; j < NW; ++j) r.v[j] = slots[(h * NW + j) * BLOCK + t];
+  return r;
+}
+
+// p + q on a fold group (sw.py: add): lp, rp the points (PT_WORDS each,
+// shared or global memory), c the caller's coordinate; returns
+// coordinate c of the sum.  Reads lp and rp before the group's first
+// barrier, so the caller may store the result over lp.
+template <int B3>
+__device__ __forceinline__ Fq group_add(const uint32_t* lp,
+                                        const uint32_t* rp, int c,
+                                        uint32_t* slots, unsigned mask,
+                                        const Params& P) {
+  const int a = c == 1 ? 1 : 0, b = c == 0 ? 1 : 2;  // xy, yz, xz
+  const Fq t = fq::mul(fq::load<NW>(lp + c * NW), fq::load<NW>(rp + c * NW),
+                       P);
+  const Fq s = fq::mul(
+      fq::add(fq::load<NW>(lp + a * NW), fq::load<NW>(lp + b * NW), P),
+      fq::add(fq::load<NW>(rp + a * NW), fq::load<NW>(rp + b * NW), P), P);
+  __syncwarp(mask);                 // the group has read its last slots
+  put_slot(slots, 0, t);
+  put_slot(slots, 1, s);
+  __syncwarp(mask);
+  const int g0 = threadIdx.x & ~(TREE_GROUP - 1);
+  auto peer = [&](int h, int j) { return get_slot(slots, h, g0 + j); };
+  const Fq t0 = peer(0, 0), t1 = peer(0, 1), t2 = peer(0, 2);
+  const Fq m_xy = fq::sub(peer(1, 0), fq::add(t0, t1, P), P);
+  const Fq m_yz = fq::sub(peer(1, 1), fq::add(t1, t2, P), P);
+  const Fq m_xz = fq::sub(peer(1, 2), fq::add(t0, t2, P), P);
+  const Fq b3t2 = mul_small<B3>(t2, P);
+  const Fq u = fq::sub(t1, b3t2, P);
+  const Fq v = fq::add(t1, b3t2, P);
+  const Fq w = mul_small<B3>(m_xz, P);
+  const Fq t3 = fq::add(fq::add(t0, t0, P), t0, P);
+  const Fq p1 = fq::mul(fq::select(c == 0, m_xy, fq::select(c == 1, v, m_yz)),
+                        fq::select(c == 2, v, u), P);
+  const Fq p2 = fq::mul(fq::select(c == 0, m_yz, fq::select(c == 1, t3, m_xy)),
+                        fq::select(c == 2, t3, w), P);
+  return fq::select(c == 0, fq::sub(p1, p2, P), fq::add(p1, p2, P));
+}
+
+// One step t of the up-sweep over the positions of x (PT_WORDS each) and
+// their presence flags: positions n_live and up are absent, n_pos is a
+// power of two.  Item (j, e) of the step is pair j's node add (e = 0) or
+// its bit-(e - 1) partials (e = 1 .. t, when `bits`); group grp takes
+// items grp, grp + TREE_GROUPS, ...  The items of a step touch disjoint
+// positions; the caller puts a barrier between steps.
+template <int B3>
+__device__ __forceinline__ void tree_step(uint32_t* x, int32_t* present,
+                                          int n_live, int n_pos, int t,
+                                          bool bits, int grp, int g,
+                                          unsigned mask, uint32_t* slots,
+                                          const Params& P) {
+  const int c = g < 3 ? g : 2;
+  const int pairs = n_pos >> (t + 1);
+  const int items = pairs * (bits ? t + 1 : 1);
+  for (int it = grp; it < items; it += TREE_GROUPS) {
+    const int j = it % pairs, e = it / pairs;
+    const int li = (j << (t + 1)) + (e ? 1 << (e - 1) : 0);
+    const int ri = li + (1 << t);
+    if (ri >= n_live || !present[ri]) continue;   // the same in the group
+    const bool pl = present[li] != 0;
+    __syncwarp(mask);                   // the group has read the flags
+    uint32_t* const lp = x + (long long)li * PT_WORDS;
+    const uint32_t* const rp = x + (long long)ri * PT_WORDS;
+    const Fq v = pl ? group_add<B3>(lp, rp, c, slots, mask, P)
+                    : fq::load<NW>(rp + c * NW);
+    if (g < 3) fq::store(lp + c * NW, v);
+    if (g == 0) present[li] = 1;
+  }
+}
+
+// Pass 1: block (row, s) sums segment s of its row.  Writes component e
+// of the segment (e = 0 the root, e = 1 + b the partial of bit b) to
+// seg_pts[row, e, s] and its presence to seg_flags[row, e, s], for e <
+// n_comp.
+template <int B3>
+__global__ void __launch_bounds__(BLOCK)
+    k_sw_tree_segment(const uint32_t* params, const uint32_t* pts,
+                      uint32_t* seg_pts, int32_t* seg_flags, long long k,
+                      int first, int n_seg, int n_comp, int n_pow,
+                      int bits) {
+  __shared__ Params P;
+  __shared__ uint32_t xs[TREE_SEG * PT_WORDS];
+  __shared__ int32_t present[TREE_SEG];
+  __shared__ uint32_t slots[2 * NW * BLOCK];
+  fq::load_params(P, params);
+  const long long row = blockIdx.x / n_seg;
+  const int s = blockIdx.x % n_seg;
+  const long long m0 = (long long)s * TREE_SEG - first;  // slot 0's member
+  const uint32_t* const src = pts + row * k * PT_WORDS;
+  for (int e = threadIdx.x; e < TREE_SEG * PT_WORDS; e += BLOCK) {
+    const long long m = m0 + e / PT_WORDS;
+    xs[e] = m >= 0 && m < k ? src[m * PT_WORDS + e % PT_WORDS] : 0;
+  }
+  for (int i = threadIdx.x; i < TREE_SEG; i += BLOCK)
+    present[i] = m0 + i >= 0 && m0 + i < k;
+  __syncthreads();
+  const int grp = threadIdx.x / TREE_GROUP, g = threadIdx.x % TREE_GROUP;
+  const unsigned mask = ((1u << TREE_GROUP) - 1)
+                        << (threadIdx.x & 31 & ~(TREE_GROUP - 1));
+  for (int t = 0; t < TREE_SEG_LOG; ++t) {
+    tree_step<B3>(xs, present, TREE_SEG, TREE_SEG, t, bits != 0, grp, g,
+                  mask, slots, P);
+    __syncthreads();
+  }
+  for (int e = threadIdx.x; e < n_comp * PT_WORDS; e += BLOCK) {
+    const int c = e / PT_WORDS, w = e % PT_WORDS;
+    const int pos = c ? 1 << (c - 1) : 0;
+    seg_pts[((row * n_comp + c) * n_pow + s) * PT_WORDS + w] =
+        xs[pos * PT_WORDS + w];
+  }
+  for (int c = threadIdx.x; c < n_comp; c += BLOCK)
+    seg_flags[(row * n_comp + c) * n_pow + s] = present[c ? 1 << (c - 1) : 0];
+}
+
+// dst = the point at src if `live`, else the identity (0 : 1 : 0)
+__device__ __forceinline__ void copy_or_identity(uint32_t* dst,
+                                                 const uint32_t* src,
+                                                 bool live, const Params& P) {
+  for (int w = threadIdx.x; w < PT_WORDS; w += BLOCK)
+    dst[w] = live ? src[w] : w / NW == 1 ? P.one[w % NW] : 0;
+}
+
+// Pass 2: block (row, e) runs the up-sweep over the n_seg segments'
+// component e in place in seg_pts (with the bits above the segment for e
+// = 0 when `bits`), then writes the row sum (e = 0) and the bit sums:
+// bit b < TREE_SEG_LOG from component 1 + b, bit TREE_SEG_LOG + b from
+// position 2^b of component 0; an absent one as the identity.
+template <int B3>
+__global__ void __launch_bounds__(BLOCK)
+    k_sw_tree_finish(const uint32_t* params, uint32_t* seg_pts,
+                     int32_t* seg_flags, uint32_t* sums, uint32_t* bit_sums,
+                     long long rows, int n_seg, int n_comp, int n_pow,
+                     int n_bits) {
+  __shared__ Params P;
+  __shared__ uint32_t slots[2 * NW * BLOCK];
+  fq::load_params(P, params);
+  const long long row = blockIdx.x / n_comp;
+  const int e = blockIdx.x % n_comp;
+  uint32_t* const x = seg_pts + (row * n_comp + e) * n_pow * PT_WORDS;
+  int32_t* const present = seg_flags + (row * n_comp + e) * n_pow;
+  const int grp = threadIdx.x / TREE_GROUP, g = threadIdx.x % TREE_GROUP;
+  const unsigned mask = ((1u << TREE_GROUP) - 1)
+                        << (threadIdx.x & 31 & ~(TREE_GROUP - 1));
+  const bool bits = bit_sums != nullptr;
+  for (int t = 0; (1 << (t + 1)) <= n_pow; ++t) {
+    tree_step<B3>(x, present, n_seg, n_pow, t, bits && e == 0, grp, g, mask,
+                  slots, P);
+    __syncthreads();
+  }
+  if (e == 0) {
+    copy_or_identity(sums + row * PT_WORDS, x, true, P);
+    for (int j = TREE_SEG_LOG; bits && j < n_bits; ++j) {
+      const int pos = 1 << (j - TREE_SEG_LOG);
+      copy_or_identity(bit_sums + ((long long)j * rows + row) * PT_WORDS,
+                       x + (long long)pos * PT_WORDS,
+                       pos < n_seg && present[pos], P);
+    }
+  } else {
+    copy_or_identity(bit_sums + ((long long)(e - 1) * rows + row) * PT_WORDS,
+                     x, present[0] != 0, P);
+  }
+}
+
 unsigned grid_for(long long n) { return (unsigned)((n + BLOCK - 1) / BLOCK); }
 
 // Launch `launch(std::integral_constant<int, B3>)` for the curve's 3b:
@@ -410,6 +638,40 @@ int sw_running_sum(const void* params, int b3, const void* pts, void* t_out,
         <<<grid_for(lanes), BLOCK, 0, (cudaStream_t)stream>>>(
             (const uint32_t*)params, (const uint32_t*)pts, (uint32_t*)t_out,
             (uint32_t*)u_out, lanes, steps);
+  });
+}
+
+// sums (rows, 3, 12) = the row sums of pts (rows, k, 3, 12); if bit_sums
+// is not null, also the bit sums (n_bits, rows, 3, 12) of weights first
+// + m.  seg_pts (rows, n_comp, n_pow, 3, 12) and seg_flags (rows,
+// n_comp, n_pow) are scratch, with n_seg = ceil((first + k) / 2^seg_log),
+// n_pow the power of two at or above it and n_comp = 1 + min(seg_log,
+// n_bits) with bits, else 1; seg_log must be TREE_SEG_LOG (the caller's
+// sizes follow it).  Two launches on `stream`.
+int sw_tree_sum(const void* params, int b3, const void* pts, void* seg_pts,
+                void* seg_flags, void* sums, void* bit_sums, long long rows,
+                long long k, int first, int n_bits, int seg_log,
+                void* stream) {
+  if (rows <= 0) return 0;
+  if (seg_log != TREE_SEG_LOG || k < 1 || first < 0 || n_bits < 1)
+    return (int)cudaErrorInvalidValue;
+  const int n_seg = (int)((first + k + TREE_SEG - 1) / TREE_SEG);
+  int n_pow = 1;
+  while (n_pow < n_seg) n_pow *= 2;
+  const bool bits = bit_sums != nullptr;
+  const int n_comp =
+      bits ? 1 + (n_bits < TREE_SEG_LOG ? n_bits : TREE_SEG_LOG) : 1;
+  cudaStream_t st = (cudaStream_t)stream;
+  return with_b3(b3, [&](auto kb) {
+    constexpr int B3 = decltype(kb)::value;
+    k_sw_tree_segment<B3><<<(unsigned)(rows * n_seg), BLOCK, 0, st>>>(
+        (const uint32_t*)params, (const uint32_t*)pts, (uint32_t*)seg_pts,
+        (int32_t*)seg_flags, k, first, n_seg, n_comp, n_pow, bits);
+    if (cudaPeekAtLastError() != cudaSuccess) return;
+    k_sw_tree_finish<B3><<<(unsigned)(rows * n_comp), BLOCK, 0, st>>>(
+        (const uint32_t*)params, (uint32_t*)seg_pts, (int32_t*)seg_flags,
+        (uint32_t*)sums, (uint32_t*)bit_sums, rows, n_seg, n_comp, n_pow,
+        n_bits);
   });
 }
 

@@ -1,4 +1,4 @@
-"""The eleven MSM kernels, seven twisted-Edwards and four short-Weierstrass:
+"""The twelve MSM kernels, seven twisted-Edwards and five short-Weierstrass:
 wrappers, launch counts and plain versions.
 
 Each wrapper takes int32 Montgomery-word tensors (layouts in
@@ -28,6 +28,7 @@ hold each kernel against them bit for bit.
 | sw_gather_accumulate  | make_mixed_add, make_mixed_add_multi, make_mixed_add_rect (+ their rank loops) |
 | sw_full_add           | make_full_add                                            |
 | sw_running_sum        | the scan launches of make_full_add in merge_buckets_pallas |
+| sw_tree_sum           | the per-level make_full_add launches of the merges' trees and bit sums |
 | sw_combine            | the serial make_full_add launches of combine_windows (pippenger.py) and of the merge's fold |
 """
 
@@ -47,7 +48,7 @@ TE_KERNELS = ("te_dbl_chain", "te_bucket_accumulate",
               "te_gather_accumulate", "te_full_add", "te_running_sum",
               "te_tree_sum", "te_combine")
 SW_KERNELS = ("sw_gather_accumulate", "sw_full_add", "sw_running_sum",
-              "sw_combine")
+              "sw_tree_sum", "sw_combine")
 # the curves' 3b for which csrc/msm_sw.cu has an instantiation (it
 # multiplies by 3b as a chain of additions): BLS12-377's SW form, BLS12-381
 SW_B3 = (3, 12)
@@ -94,6 +95,8 @@ def _sw_lib() -> ctypes.CDLL:
                                          ll, ll, ll, vp]
     lib.sw_full_add.argtypes = [vp, ci, vp, vp, vp, ll, vp]
     lib.sw_running_sum.argtypes = [vp, ci, vp, vp, vp, ll, ci, vp]
+    lib.sw_tree_sum.argtypes = [vp, ci, vp, vp, vp, vp, vp, ll, ll, ci, ci,
+                                ci, vp]
     lib.sw_combine.argtypes = [vp, ci, vp, vp, ci, ll, ci, vp]
     for name in SW_KERNELS:
         getattr(lib, name).restype = ci
@@ -373,8 +376,8 @@ def te_running_sum_plain(curve: CurveSpec, pts: torch.Tensor
 # te_tree_sum
 # ---------------------------------------------------------------------------
 
-# log2 of the slots a block of te_tree_sum's first pass sums
-# (TREE_SEG_LOG of csrc/msm_te.cu, which checks it)
+# log2 of the slots a block of a tree sum's first pass sums (TREE_SEG_LOG
+# of csrc/msm_te.cu and csrc/msm_sw.cu, whose launchers check it)
 TREE_SEG_LOG = 6
 
 
@@ -384,7 +387,7 @@ def tree_bits(k: int, first: int) -> int:
 
 
 def tree_layout(k: int, first: int | None) -> tuple[int, int, int]:
-    """te_tree_sum's segments for k members at weight offset `first`
+    """The tree sums' segments for k members at weight offset `first`
     (None: roots only): (segments, their count padded to a power of two,
     components a segment passes on: the root, and with bits the partials
     of bits 0 .. min(TREE_SEG_LOG, n_bits) - 1)."""
@@ -395,21 +398,20 @@ def tree_layout(k: int, first: int | None) -> tuple[int, int, int]:
     return n_seg, 1 << (n_seg - 1).bit_length(), n_comp
 
 
-def te_tree_sum(curve: CurveSpec, pts: torch.Tensor, first: int | None = None
-                ) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """Row sums of pts (R, K, 4, nw), (R, 4, nw); with a weight offset
-    `first`, also the bit sums (n_bits, R, 4, nw): S_j[r] = the sum of the
-    pts[r, m] whose weight first + m has bit j set, the identity where
-    none has (n_bits = `tree_bits(K, first)`), else None.  The order of
-    the adds is `te_tree_sum_plain`'s."""
-    _check("pts", pts, _pt_tail(curve))
+def _check_tree(pts: torch.Tensor, tail: tuple, first: int | None) -> None:
+    _check("pts", pts, tail)
     if pts.dim() != 4 or pts.shape[1] < 1:
-        raise ValueError("pts: expected (R, K >= 1, 4, nw), got "
+        raise ValueError(f"pts: expected (R, K >= 1, {tail[0]}, nw), got "
                          f"{tuple(pts.shape)}")
     if first is not None and first < 0:
         raise ValueError(f"first: expected a weight offset >= 0, got {first}")
-    if not _device.on_card(pts):
-        return te_tree_sum_plain(curve, pts, first)
+
+
+def _tree_launch(name: str, launcher, lead: tuple, pts: torch.Tensor,
+                 first: int | None
+                 ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Allocate a tree sum's outputs and scratch and launch `launcher`
+    (te_tree_sum's or sw_tree_sum's C entry) after its `lead` arguments."""
     rows, k = pts.shape[:2]
     off = first or 0
     n_bits = tree_bits(k, off)
@@ -422,108 +424,109 @@ def te_tree_sum(curve: CurveSpec, pts: torch.Tensor, first: int | None = None
                       dtype=torch.int32, device=pts.device)
     flags = torch.empty((rows, n_comp, n_pow), dtype=torch.int32,
                         device=pts.device)
-    rc = _lib().te_tree_sum(
-        device_params(curve, pts.device).data_ptr(), pts.data_ptr(),
-        seg.data_ptr(), flags.data_ptr(), sums.data_ptr(),
-        None if bits is None else bits.data_ptr(), rows, k, off, n_bits,
-        TREE_SEG_LOG, _device.stream(pts))
-    _launch("te_tree_sum", rc)
+    rc = launcher(*lead, pts.data_ptr(), seg.data_ptr(), flags.data_ptr(),
+                  sums.data_ptr(), None if bits is None else bits.data_ptr(),
+                  rows, k, off, n_bits, TREE_SEG_LOG, _device.stream(pts))
+    _launch(name, rc)
     return sums, bits
 
 
-def _tree_upsweep(curve: CurveSpec, *groups: tuple) -> None:
-    """The in-place up-sweep of each group (x, present, bits): x (rows, n,
-    4, nw), n a power of two and the same for every group, present (rows,
-    n) bool.  At step t the level-t nodes pair up, L = 2j 2^t, R = L +
-    2^t, and x[L] += x[R]; with `bits` also x[L + 2^b] += x[R + 2^b] for b
-    < t.  An absent right leaves the left, an absent left takes the right.
+def te_tree_sum(curve: CurveSpec, pts: torch.Tensor, first: int | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Row sums of pts (R, K, 4, nw), (R, 4, nw); with a weight offset
+    `first`, also the bit sums (n_bits, R, 4, nw): S_j[r] = the sum of the
+    pts[r, m] whose weight first + m has bit j set, the identity where
+    none has (n_bits = `tree_bits(K, first)`), else None.  The order of
+    the adds is `te_tree_sum_plain`'s."""
+    _check_tree(pts, _pt_tail(curve), first)
+    if not _device.on_card(pts):
+        return te_tree_sum_plain(curve, pts, first)
+    return _tree_launch("te_tree_sum", _lib().te_tree_sum,
+                        (device_params(curve, pts.device).data_ptr(),), pts,
+                        first)
+
+
+def _tree_upsweep(add, x: torch.Tensor, present: torch.Tensor,
+                  bits: bool) -> None:
+    """The in-place up-sweep along axis -3 of x (..., n, P, nw), packed
+    points with presence flags present (..., n) bool, n a power of two.
+    At step t the level-t nodes pair up, L = 2j 2^t, R = L + 2^t, and
+    x[L] += x[R]; with `bits` also x[L + 2^b] += x[R + 2^b] for b < t.  An
+    absent right leaves the left, an absent left takes the right.
     Afterwards x[0] is the sum and x[2^b] the sum of the positions with b
-    trailing zeros.  Only pairs with both sides present are added, those
-    of all groups in one `te.add` a step."""
-    n = groups[0][0].shape[1]
+    trailing zeros.  Only pairs with both sides present are added, all of
+    a step in one call of `add` (packed points (m, P, nw) twice -> their
+    sums)."""
+    n = x.shape[-3]
     for t in range(n.bit_length() - 1):
-        steps = []
-        for x, present, bits in groups:
-            offs = [0] + ([1 << b for b in range(t)] if bits else [])
-            left = torch.arange(0, n, 2 << t, device=x.device)
-            li = (left[:, None]
-                  + torch.tensor(offs, device=x.device)).reshape(-1)
-            ri = li + (1 << t)
-            a, b = x[:, li], x[:, ri]
-            pl, pr = present[:, li], present[:, ri]
-            both = pl & pr
-            steps.append((x, present, li, a, b, pl | pr, both,
-                          torch.where(pr[..., None, None], b, a)))
-        lhs = torch.cat([st[3][st[6]] for st in steps])
-        if lhs.shape[0]:
-            rhs = torch.cat([st[4][st[6]] for st in steps])
-            s = te.pack(te.add(curve, te.unpack(lhs), te.unpack(rhs)))
-            parts = s.split([int(st[6].sum()) for st in steps])
-            for st, part in zip(steps, parts):
-                st[7][st[6]] = part
-        for x, present, li, _, _, p, _, new in steps:
-            x[:, li] = new
-            present[:, li] = p
+        offs = [0] + ([1 << b for b in range(t)] if bits else [])
+        li = (torch.arange(0, n, 2 << t)[:, None]
+              + torch.tensor(offs)).reshape(-1).to(x.device)
+        a, b = x[..., li, :, :], x[..., li + (1 << t), :, :]
+        pl, pr = present[..., li], present[..., li + (1 << t)]
+        new = torch.where(pr[..., None, None], b, a)
+        both = pl & pr
+        if bool(both.any()):
+            new[both] = add(a[both], b[both])
+        x[..., li, :, :] = new
+        present[..., li] = pl | pr
+
+
+def _tree_sum_plain(add, ident: torch.Tensor, pts: torch.Tensor,
+                    first: int | None
+                    ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The tree kernels' order, on the group law `add` (as
+    `_tree_upsweep`) with identity `ident` (P, nw): member m of a row in
+    slot off + m (off = first, or 0), the slots cut into segments of
+    2^TREE_SEG_LOG (absent slots before and after); `_tree_upsweep` over
+    each segment (with bits when `first` is given), whose components are
+    the root x[0] and the bit-b partials x[2^b]; then, per row,
+    `_tree_upsweep` over the segments' roots (with bits: the bits above
+    the segment, at positions 2^b) and apart over each bit's partials (no
+    bits), the segments padded with absent ones to a power of two."""
+    rows, k = pts.shape[:2]
+    tail = pts.shape[-2:]
+    off = first or 0
+    seg = 1 << TREE_SEG_LOG
+    n_seg, n_pow, n_comp = tree_layout(k, first)
+    x = torch.zeros((rows, n_seg * seg, *tail), dtype=pts.dtype,
+                    device=pts.device)
+    x[:, off:off + k] = pts
+    present = torch.zeros(x.shape[:2], dtype=torch.bool, device=pts.device)
+    present[:, off:off + k] = True
+    x = x.reshape(rows, n_seg, seg, *tail)
+    present = present.reshape(rows, n_seg, seg)
+    _tree_upsweep(add, x, present, first is not None)
+    # component c of segment s at [:, c, s]: the root (c = 0), then the
+    # partial of bit c - 1
+    pos = [0] + [1 << b for b in range(n_comp - 1)]
+    y = torch.zeros((rows, n_comp, n_pow, *tail), dtype=pts.dtype,
+                    device=pts.device)
+    yp = torch.zeros((rows, n_comp, n_pow), dtype=torch.bool,
+                     device=pts.device)
+    y[:, :, :n_seg] = x[:, :, pos].transpose(1, 2)
+    yp[:, :, :n_seg] = present[:, :, pos].transpose(1, 2)
+    _tree_upsweep(add, y[:, 0], yp[:, 0], first is not None)
+    _tree_upsweep(add, y[:, 1:], yp[:, 1:], False)
+    if first is None:
+        return y[:, 0, 0], None
+    bits = []
+    for j in range(tree_bits(k, off)):
+        # the bits below a segment from the partials, those above from the
+        # roots' up-sweep (2^j <= off + k - 1, so position 2^(j - seg_log)
+        # is a segment)
+        c, s = (1 + j, 0) if j < TREE_SEG_LOG else (0, 1 << (j - TREE_SEG_LOG))
+        bits.append(torch.where(yp[:, c, s, None, None], y[:, c, s], ident))
+    return y[:, 0, 0], torch.stack(bits)
 
 
 def te_tree_sum_plain(curve: CurveSpec, pts: torch.Tensor,
                       first: int | None = None
                       ) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """The kernel's order: member m of a row in slot off + m (off = first,
-    or 0), the slots cut into segments of 2^TREE_SEG_LOG (absent slots
-    before and after); `_tree_upsweep` over each segment (with bits when
-    `first` is given), whose components are the root x[0] and the bit-b
-    partials x[2^b]; then, per row, `_tree_upsweep` over the segments'
-    roots (with bits: the bits above the segment, at positions 2^b) and
-    apart over each bit's partials (no bits), the segments padded with
-    absent ones to a power of two."""
-    rows, k = pts.shape[:2]
-    off = first or 0
-    with_bits = first is not None
-    n_bits = tree_bits(k, off)
-    seg = 1 << TREE_SEG_LOG
-    n_seg, n_pow, n_comp = tree_layout(k, first)
-    x = torch.zeros((rows, n_seg * seg, *pts.shape[-2:]), dtype=pts.dtype,
-                    device=pts.device)
-    x[:, off:off + k] = pts
-    present = torch.zeros(x.shape[:2], dtype=torch.bool, device=pts.device)
-    present[:, off:off + k] = True
-    x = x.reshape(rows * n_seg, seg, *pts.shape[-2:])
-    present = present.reshape(rows * n_seg, seg)
-    _tree_upsweep(curve, (x, present, with_bits))
-    pos = [0] + [1 << b for b in range(n_comp - 1)]
-    # (rows, n_comp, n_pow): component c of segment s at [:, c, s]
-    y = torch.zeros((rows, n_comp, n_pow, *pts.shape[-2:]), dtype=pts.dtype,
-                    device=pts.device)
-    yp = torch.zeros((rows, n_comp, n_pow), dtype=torch.bool,
-                     device=pts.device)
-    y[:, :, :n_seg] = x[:, pos].reshape(rows, n_seg, n_comp,
-                                        *pts.shape[-2:]).transpose(1, 2)
-    yp[:, :, :n_seg] = present[:, pos].reshape(rows, n_seg,
-                                               n_comp).transpose(1, 2)
-    roots, roots_p = y[:, 0].clone(), yp[:, 0].clone()
-    if not with_bits:
-        _tree_upsweep(curve, (roots, roots_p, False))
-        return roots[:, 0], None
-    parts = y[:, 1:].reshape(rows * (n_comp - 1), n_pow, *pts.shape[-2:])
-    parts_p = yp[:, 1:].reshape(rows * (n_comp - 1), n_pow)
-    _tree_upsweep(curve, (roots, roots_p, True), (parts, parts_p, False))
-    sums = roots[:, 0]
-    parts = parts[:, 0].reshape(rows, n_comp - 1, *pts.shape[-2:])
-    parts_p = parts_p[:, 0].reshape(rows, n_comp - 1)
-    ident = te.pack(te.identity(curve, (), pts.device))
-    out = []
-    for j in range(n_bits):
-        if j < TREE_SEG_LOG:
-            v, p = parts[:, j], parts_p[:, j]
-        elif (1 << (j - TREE_SEG_LOG)) < n_pow:
-            v, p = (roots[:, 1 << (j - TREE_SEG_LOG)],
-                    roots_p[:, 1 << (j - TREE_SEG_LOG)])
-        else:
-            v, p = ident.expand(rows, *ident.shape), torch.zeros(
-                rows, dtype=torch.bool, device=pts.device)
-        out.append(torch.where(p[:, None, None], v, ident))
-    return sums, torch.stack(out)
+    """`_tree_sum_plain` on the TE group law."""
+    return _tree_sum_plain(
+        lambda a, b: te.pack(te.add(curve, te.unpack(a), te.unpack(b))),
+        te.pack(te.identity(curve, (), pts.device)), pts, first)
 
 
 # ---------------------------------------------------------------------------
@@ -708,6 +711,34 @@ def sw_running_sum_plain(curve: CurveSpec, pts: torch.Tensor
         t = sw.add(curve, t, sw.unpack(pts[:, j]))
         u = sw.add(curve, u, t)
     return sw.pack(t), sw.pack(u)
+
+
+# ---------------------------------------------------------------------------
+# sw_tree_sum
+# ---------------------------------------------------------------------------
+
+
+def sw_tree_sum(curve: CurveSpec, pts: torch.Tensor, first: int | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """`te_tree_sum` on the SW group law: the row sums of pts (R, K, 3,
+    nw), (R, 3, nw); with a weight offset `first`, also the bit sums
+    (n_bits, R, 3, nw), the identity (0 : 1 : 0) where no member has the
+    bit.  The order of the adds is `sw_tree_sum_plain`'s."""
+    _check_tree(pts, (3, fp.n_words(curve.field)), first)
+    if not _device.on_card(pts):
+        return sw_tree_sum_plain(curve, pts, first)
+    return _tree_launch("sw_tree_sum", _sw_lib().sw_tree_sum,
+                        (sw_params(curve, pts.device).data_ptr(),
+                         _sw_b3(curve)), pts, first)
+
+
+def sw_tree_sum_plain(curve: CurveSpec, pts: torch.Tensor,
+                      first: int | None = None
+                      ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """`_tree_sum_plain` on the SW group law (`sw.add`)."""
+    return _tree_sum_plain(
+        lambda a, b: sw.pack(sw.add(curve, sw.unpack(a), sw.unpack(b))),
+        sw.pack(sw.identity(curve, (), pts.device)), pts, first)
 
 
 # ---------------------------------------------------------------------------

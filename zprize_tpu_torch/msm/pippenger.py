@@ -44,15 +44,18 @@ keeps the affine planes):
    top windows, is cut into slices of the points first: `window_sums_sw`);
 3. the bucket merge (`merge_buckets_all`): from 1024 buckets on, a chunked
    running sum (kernel `sw_running_sum`, one launch for the whole group)
-   and a few `sw_full_add` tree launches; below, the bit-decomposed scan
-   on `sw_full_add`; either way its last fold in one `sw_combine` launch;
+   and two calls of `sw_tree_sum` over the chunks (the U root, the bit
+   sums of the T_q); below, the bit sums of the buckets from one
+   `sw_tree_sum` call; either way its last fold in one `sw_combine`
+   launch (a sliced group's window sums take one more roots-only
+   `sw_tree_sum` call);
 4. the window combine (`combine_windows`): one `sw_combine` launch, one
    thread a lane folding MSB-first with the dedicated a = 0 doubling.
 
-Steps 3 and 4 are bound by 32-bit integer multiplies.  Measured on an
-H100 for a 2^18 BLS12-381 MSM (PERF.md): the full group's merge 1.0-1.4
-ms, of it the running sum 0.26 ms against a 0.057 ms bound; the final
-combine 2.37 ms, one thread's chain of 2,320 dependent field multiplies.
+Steps 3 and 4 are bound by chains of dependent 32-bit integer
+multiplies.  Measured on an H100 for a 2^18 BLS12-381 MSM (PERF.md): the
+running sum 0.26 ms against a 0.057 ms bound; the final combine 2.37 ms,
+one thread's chain of 2,320 dependent field multiplies.
 
 `msm_jit_static` and `msm_jit_batch` are the reference's fixed-shape SW
 forms (two window groups, an occupancy cap that raises when exceeded);
@@ -72,8 +75,8 @@ from ..curve.spec import CurveSpec
 from ..field import fp
 from ..field.spec import BASE_BITS
 from . import te_path
-from .accum_kernel import (sw_accumulate_ranks, sw_combine, sw_full_add,
-                           sw_gather_accumulate, sw_running_sum,
+from .accum_kernel import (sw_accumulate_ranks, sw_combine,
+                           sw_gather_accumulate, sw_running_sum, sw_tree_sum,
                            te_bucket_accumulate, te_gather_accumulate)
 
 # the largest window the digit extraction takes: a window spans at most
@@ -497,23 +500,6 @@ def accumulate_pass_all(curve: CurveSpec, c: int, cap: int, px, py,
                                rank0, cap)
 
 
-def _sum_rows(curve: CurveSpec, pts: torch.Tensor) -> torch.Tensor:
-    """Tree-reduce points (m, ..., 3, nw) along axis 0 in place (log-depth
-    `sw_full_add` launches: the last half onto the first, the middle row
-    of an odd count riding along); returns the sum (..., 3, nw)."""
-    m = pts.shape[0]
-    skip = torch.zeros(pts[0].shape[:-2].numel(), dtype=torch.int32,
-                       device=pts.device)
-    flat = pts.reshape(m, -1, *pts.shape[-2:])
-    while m > 1:
-        half = m // 2
-        sw_full_add(curve, flat[:half].reshape(-1, *pts.shape[-2:]),
-                    flat[m - half:m].reshape(-1, *pts.shape[-2:]),
-                    skip.repeat(half))
-        m -= half
-    return pts[0]
-
-
 def merge_buckets_all(curve: CurveSpec, c: int, bucket_sums: torch.Tensor
                       ) -> torch.Tensor:
     """sum_b b*B_b per window (the reference's `merge_buckets_pallas`):
@@ -521,34 +507,17 @@ def merge_buckets_all(curve: CurveSpec, c: int, bucket_sums: torch.Tensor
 
     Where `te_path.triangle_split` splits the group (from 1024 buckets
     on; nbe a power of two, as every window group's is), a chunked
-    running sum (`_merge_running_sum`).  Otherwise the
-    reference's bit decomposition: the per-bit sums S_j = sum of the
-    buckets whose id has bit j run as a scan over groups of up to 128
-    bucket columns, one `sw_full_add` launch a group over (column, bit,
-    window) lanes, a lane skipping the buckets that lack its bit; then a
-    tree over the columns, and the fold sum_j 2^j S_j in one `sw_combine`
-    launch (c = 1)."""
+    running sum (`_merge_running_sum`).  Otherwise the reference's bit
+    decomposition: the per-bit sums S_j = sum of the buckets whose id has
+    bit j from one `sw_tree_sum` call (weights 1..nbe), and the fold
+    sum_j 2^j S_j in one `sw_combine` launch (c = 1), as
+    `te_path.merge_buckets_te`."""
     n_win, nbe = bucket_sums.shape[:2]
     split = te_path.triangle_split(n_win, nbe)
     if split is not None and nbe & (nbe - 1) == 0:
         return _merge_running_sum(curve, bucket_sums, *split)
-    tail = bucket_sums.shape[-2:]
-    dev = bucket_sums.device
-    n_bits = max(1, nbe.bit_length())
-    steps = max(1, nbe // 128)
-    cols = nbe // steps
-    ids = torch.arange(1, nbe + 1, device=dev).reshape(steps, cols)
-    bits = torch.arange(n_bits, device=dev)
-    skip = (((ids[:, :, None] >> bits) & 1) == 0).to(torch.int32)
-    acc = sw.pack(sw.identity(curve, (cols, n_bits, n_win), dev))
-    flat = acc.reshape(-1, *tail)
-    for t in range(steps):
-        q = bucket_sums[:, t * cols:(t + 1) * cols].transpose(0, 1)
-        q = q[:, None].expand(cols, n_bits, n_win, *tail)
-        sk = skip[t][:, :, None].expand(cols, n_bits, n_win)
-        sw_full_add(curve, flat, q.reshape(-1, *tail).contiguous(),
-                    sk.reshape(-1).contiguous())
-    return sw_combine(curve, _sum_rows(curve, acc), 1)
+    return sw_combine(curve, sw_tree_sum(curve, bucket_sums.contiguous(),
+                                         1)[1], 1)
 
 
 def _merge_running_sum(curve: CurveSpec, bucket_sums: torch.Tensor,
@@ -560,30 +529,21 @@ def _merge_running_sum(curve: CurveSpec, bucket_sums: torch.Tensor,
       U_q = sum_j (j+1) B_{qS+j+1},  T_q = sum_j B_{qS+j+1}
 
     both from one `sw_running_sum` launch over all W*C chunk lanes of S
-    steps.  One `sw_full_add` tree over the C chunks sums the U_q and the
-    per-bit sums S_k = sum of the T_q whose q has bit k, side by side; one
-    `sw_combine` launch (c = 1) then folds U + sum_k 2^(log2 S + k) S_k,
-    identity steps filling the weights between 2^0 and S.  bucket_sums
-    (W, nbe, 3, nw) -> (W, 3, nw)."""
+    steps.  One `sw_tree_sum` call sums the U_q, another gives the per-bit
+    sums S_k = sum of the T_q whose q has bit k; one `sw_combine` launch
+    (c = 1) then folds U + sum_k 2^(log2 S + k) S_k, identity steps
+    filling the weights between 2^0 and S.  bucket_sums (W, nbe, 3, nw)
+    -> (W, 3, nw)."""
     n_win = bucket_sums.shape[0]
     tail = bucket_sums.shape[-2:]
-    dev = bucket_sums.device
     chunks = bucket_sums.reshape(n_win * n_chunks, steps, *tail).contiguous()
     t_q, u_q = sw_running_sum(curve, chunks)
-    n_bits = max(1, (n_chunks - 1).bit_length())
-    q = torch.arange(n_chunks, device=dev)
-    has_bit = ((q >> torch.arange(n_bits, device=dev)[:, None]) & 1).bool()
-    ident = sw.pack(sw.identity(curve, (), dev))
-    rows = torch.cat([                                # (C, 1 + n_bits, W)
-        u_q.reshape(n_win, n_chunks, *tail).transpose(0, 1)[:, None],
-        torch.where(has_bit.t()[:, :, None, None, None],
-                    t_q.reshape(n_win, n_chunks, *tail)
-                    .transpose(0, 1)[:, None], ident)], dim=1)
-    sums = _sum_rows(curve, rows.contiguous())        # (1 + n_bits, W)
+    u = sw_tree_sum(curve, u_q.reshape(n_win, n_chunks, *tail))[0]
+    s_k = sw_tree_sum(curve, t_q.reshape(n_win, n_chunks, *tail), 0)[1]
+    ident = sw.pack(sw.identity(curve, (), bucket_sums.device))
     log_s = steps.bit_length() - 1
-    fold = torch.cat([sums[:1], ident.expand(log_s - 1, n_win, *tail),
-                      sums[1:]])
-    return sw_combine(curve, fold.contiguous(), 1)
+    fold = torch.cat([u[None], ident.expand(log_s - 1, n_win, *tail), s_k])
+    return sw_combine(curve, fold, 1)
 
 
 def combine_windows(curve: CurveSpec, c: int, window_sums: torch.Tensor
@@ -617,7 +577,8 @@ def window_sums_sw(curve: CurveSpec, c: int, px: torch.Tensor,
     a few serial threads.  Such a group's points are cut into up to
     `_MAX_SLICES` slices, each a digit row of its own (the digits of the
     other slices zeroed): runs shrink by that factor, and the slices'
-    window sums add up to the window's.  A group is cut when its longest
+    window sums add up to the window's (one roots-only `sw_tree_sum`
+    call).  A group is cut when its longest
     run exceeds twice a full window's mean run and `_MIN_RUN`."""
     n = digits.shape[1]
     dev = digits.device
@@ -642,9 +603,8 @@ def window_sums_sw(curve: CurveSpec, c: int, px: torch.Tensor,
             curve, c, sw_gather_accumulate(curve, px, py, *runs))
         del runs
         if slices > 1:
-            merged = _sum_rows(curve, merged.reshape(
-                len(rows), slices, *merged.shape[-2:]).transpose(0, 1)
-                .contiguous())
+            merged = sw_tree_sum(curve, merged.reshape(
+                len(rows), slices, *merged.shape[-2:]))[0]
         for k, r in enumerate(rows):
             out[r] = merged[k]
     return torch.stack(out)
