@@ -11,7 +11,10 @@ In order, each phase raising on failure (so the exit code is non-zero):
    bit for bit, on random inputs (4096 lanes, and 1000, not a multiple of
    the 128-thread block; identity, doubling and edge-value lanes 0, 1, p-1;
    for te_gather_accumulate empty runs, runs of one, identity and
-   edge-value rows, negative signs; for te_running_sum chunks of S = 8 and
+   edge-value rows, negative signs; te_bucket_accumulate also from init
+   lanes (random, identity and edge-word lanes, with runs and empty, an
+   empty run giving its init lane back unchanged); for te_running_sum
+   chunks of S = 8 and
    16 points with an identity lane, a lane of one point repeated, whose
    suffix sum doubles, and a lane of edge values); te_combine (folded by
    groups of 4 threads) at 1, 15 and 33 lanes, c = 1, 5 and 17, 1, 2, 13
@@ -61,7 +64,14 @@ In order, each phase raising on failure (so the exit code is non-zero):
    base points (i+1)·G tiled, `multi_scalar_mult_init`, then a warm-up and
    4 timed batches of seeded compact scalars; every result is checked
    against the python-int oracle (sum_i agg_i·(i+1) mod r)·G, and every
-   kernel of the path must have been launched in that run;
+   kernel of the path must have been launched in that run; then the
+   collapsed gather route (`accum="gather"` on the same table: one
+   te_gather_accumulate launch an MSM reading the table through the sort
+   permutation, no te_bucket_accumulate), a warm-up and 4 timed batches,
+   each MSM of either route checked against the oracle, timed against
+   the default (sorted) route in the order default, gather, gather,
+   default, ...; and te_gather_accumulate at that route's shape (2^22
+   table rows, 2^16 buckets) beside its plain version and its bound;
 4b. drives the prize configuration, the m = 1 route: n = 2^26 points
    (the same base set tiled 65,536 times), `multi_scalar_mult_init`
    (plan c = 17, g = 16, m = 1: one operand per point, no collapse
@@ -81,7 +91,16 @@ In order, each phase raising on failure (so the exit code is non-zero):
    and V bit sums, the carry window; beside each time its throughput
    bound, the card's latency floor and the design floor), te_combine at
    the final combine's shape (16 steps, c = 17, one lane; bound: its 555-mulmod
-   critical path times 2 dependent IMADs a mulmod);
+   critical path times 2 dependent IMADs a mulmod); then the sorted route
+   on the same table (`accum="sorted"`: per window, runs of 2^23 rows
+   sorted, copied and summed by te_bucket_accumulate chained through its
+   init lanes, 128 launches an MSM, no te_gather_accumulate or
+   te_dbl_chain), a warm-up (its peak memory) and SORTED_BATCHES timed
+   batches, each MSM of either route checked against the oracle, timed
+   against the default (gather) route in the order gather, sorted,
+   sorted, gather; one profiled sorted MSM; and te_bucket_accumulate at
+   that route's shape (a 2^23-row run from init lanes, 2^16 buckets)
+   beside its plain version and its bound;
 5. profiles one 2^18 MSM (device time by kernel, device idle share);
 6. times each MSM kernel of the 2^18 path that 4b's rows do not cover at
    the shapes the path gives them,
@@ -184,7 +203,9 @@ In order, each phase raising on failure (so the exit code is non-zero):
    proof), gl_ntt (NTT) and fr_ntt (proof).
 
 Prints one JSON line for the 2^18 MSM path, one for the 2^26 path, one
-for the PLONK path, one for the Goldilocks NTT, one for the SW route, one
+each for the collapsed gather and the sorted route (beside the default
+route's figures from the same run), one for the PLONK path, one for the
+Goldilocks NTT, one for the SW route, one
 for Marlin verification, one for PoSW, one for the sharded forms, one
 {"kernels": [...]} line (each row also with its launches in phase 10's
 prove_batch of 4, in a PoSW batch of 8, the mean of the timed batches,
@@ -208,6 +229,7 @@ PRIZE_LOG = 26                             # prize 1a: 2^26 points
 SKEW_LOG = 12
 N_BASE = 1 << 10
 BATCHES = 4
+SORTED_BATCHES = 2                         # phase 4b's sorted-route batches
 SEED = 42
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): 3.35 TB/s of HBM; 67 TFLOP/s
@@ -429,6 +451,29 @@ def check_kernels_random(curve, dev, lanes):
     out = ak.te_bucket_accumulate(curve, rows, sign, starts, counts)
     results["te_bucket_accumulate"] = max_abs_err(
         out, ak.te_bucket_accumulate_plain(curve, rows, sign, starts, counts))
+
+    # te_bucket_accumulate from init lanes (the sorted route chains a
+    # window's runs through them): random lanes, identity lanes and lanes
+    # of edge words, with runs and empty, where the init lane must come
+    # back unchanged
+    init = random_elems(fp, f, (lanes, 4), rng, dev)
+    init[4] = ident
+    init[9] = ident
+    for k, v in enumerate((0, 1, f.p - 1)):
+        init[6 + k] = fp.raw_words(f, v, dev).expand(4, nw)
+        init[10 + k] = init[6 + k]
+    init_counts = counts.clone()
+    init_counts[[9, 10, 11, 12]] = 0      # identity and edge lanes, empty
+    init_counts[[4, 6, 7, 8]] = 3         # identity and edge lanes, a run
+    out = ak.te_bucket_accumulate(curve, rows, sign, starts, init_counts,
+                                  init)
+    results["te_bucket_accumulate init"] = max_abs_err(
+        out, ak.te_bucket_accumulate_plain(curve, rows, sign, starts,
+                                           init_counts, init))
+    empty = init_counts == 0
+    if not torch.equal(out[empty], init[empty]):
+        raise AssertionError("te_bucket_accumulate changed the init lane of "
+                             "an empty run")
 
     # te_gather_accumulate: two windows of lanes / 2 buckets over the same
     # rows as a point table, each window with its own permutation
@@ -908,6 +953,230 @@ def skewed_run(curve, dev, route, **init):
         f"equal and half zero verified, {ms:.1f} ms per MSM (host clock)")
     return {"n": n, "c": ctx.prepared.c, "ms_per_msm_host": ms,
             "verified": 2}
+
+
+def timed_msm(ctx, s):
+    """One `multi_scalar_mult` call on scalars already on the card: the
+    result, its device ms (CUDA events) and the launches it made."""
+    from zprize_tpu_torch.msm import accum_kernel as ak
+    from zprize_tpu_torch.msm import api
+    torch.cuda.synchronize()
+    before = dict(ak.launches)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = api.multi_scalar_mult(ctx, s)[0]
+    end.record()
+    end.synchronize()
+    return res, start.elapsed_time(end), {
+        name: ak.launches[name] - before[name] for name in ak.KERNELS}
+
+
+def route_ab(curve, ctx, accum, draw, timed_batches, check_launches):
+    """The other accumulate `accum` on ctx's table (the context with
+    `accum` set, sharing the table) against ctx's default route, in one
+    process: a warm-up of `accum` on draw(0) (its peak device memory read
+    from a reset just before it), then for each of `timed_batches`
+    batches draw(k) both routes, the default first on odd k and `accum`
+    first on even k (default, accum, accum, default, ...).  draw(k) gives
+    a scalar batch on the card (int16 compact form); every result of
+    either route is held against the python-int oracle, and every MSM of
+    `accum` against check_launches(launches), which raises.  Returns the
+    summary and the last batch on the host."""
+    import dataclasses
+    from zprize_tpu_torch.curve import sw
+    from zprize_tpu_torch.msm import pippenger
+    from zprize_tpu_torch.utils import oracle
+    alt = dataclasses.replace(ctx, accum=accum)
+    default = pippenger.accum_route(ctx.prepared, ctx.accum)
+    n = ctx.prepared.n
+    label = f"2^{n.bit_length() - 1} accum={accum}"
+    times = {default: [], accum: []}
+    per_msm = {}
+
+    def run(route, ctx_r, s, expect, k):
+        res, ms, launched = timed_msm(ctx_r, s)
+        if sw.to_affine_ints(curve, res) != expect:
+            raise AssertionError(f"{label} batch {k}: the {route} route's "
+                                 "MSM != oracle")
+        if route == accum:
+            check_launches(launched)
+        per_msm[route] = launched
+        return ms
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in range(timed_batches + 1):
+        s = draw(k)
+        host = s.cpu().numpy().view(np.uint16)
+        expect = oracle.chain_msm(curve, oracle.oracle_agg(curve, host,
+                                                           N_BASE))
+        if k == 0:
+            warm_ms = run(accum, alt, s, expect, k)
+            peak = torch.cuda.max_memory_allocated()
+            continue
+        order = ((default, ctx), (accum, alt))
+        for route, ctx_r in order if k % 2 else order[::-1]:
+            times[route].append(run(route, ctx_r, s, expect, k))
+        log(f"{label} batch {k}: {accum} {times[accum][-1]:.3f} ms, "
+            f"{default} (default) {times[default][-1]:.3f} ms, both "
+            "verified")
+        del s
+    means = {r: sum(t) / len(t) for r, t in times.items()}
+    summary = {
+        "metric": f"bls12_377_msm_2^{n.bit_length() - 1}_{accum}",
+        "n": n, "accum": accum, "c": ctx.prepared.c, "g": ctx.prepared.g,
+        "m": ctx.prepared.m,
+        "msm_ms": times[accum], "msm_ms_mean": means[accum],
+        "points_per_s": n / (means[accum] / 1e3),
+        "warm_up_ms": warm_ms,
+        "max_memory_allocated_warm_up": peak,
+        "launches_per_msm": per_msm[accum],
+        "default_accum": default,
+        "default_msm_ms": times[default],
+        "default_msm_ms_mean": means[default],
+        "default_points_per_s": n / (means[default] / 1e3),
+        "default_launches_per_msm": per_msm[default],
+        "order": "default, accum, accum, default, ... (one process)",
+        "oracle_checked_batches": 2 * timed_batches + 1,
+    }
+    log(f"{label}: {means[accum]:.3f} ms an MSM against the default "
+        f"{default} route's {means[default]:.3f} ms")
+    return summary, host
+
+
+def collapsed_gather_path(curve, ctx, dev):
+    """Phase 4, the collapsed gather route (accum="gather" on phase 4's
+    table): a warm-up and BATCHES timed batches against the default
+    (sorted) route, each MSM launching te_gather_accumulate once and
+    te_bucket_accumulate never; then te_gather_accumulate at the route's
+    shape (the m*n table rows through the permutation, g windows of
+    2^(c-1) buckets, one launch), timed beside its plain version and its
+    bound and checked against the plain version."""
+    from zprize_tpu_torch.msm import accum_kernel as ak
+    from zprize_tpu_torch.msm import pippenger
+    from zprize_tpu_torch.utils import oracle
+    n = ctx.prepared.n
+    rng = np.random.default_rng(SEED + 1)
+
+    def draw(k):
+        return torch.from_numpy(oracle.scalar_batch_np(curve, rng, n).view(
+            np.int16)).to(dev)
+
+    def check(launched):
+        if (launched["te_gather_accumulate"] != 1
+                or launched["te_bucket_accumulate"]
+                or launched["te_dbl_chain"]):
+            raise AssertionError(f"collapsed gather MSM launches {launched}")
+
+    summary, host = route_ab(curve, ctx, "gather", draw, BATCHES, check)
+    p = ctx.prepared
+    s = torch.from_numpy(host.view(np.int16)).to(dev)
+    runs = pippenger.sort_windows(
+        pippenger.collapsed_digits(curve, p, ctx.points.inf, s).to(
+            torch.int32), 1 << (p.c - 1))
+    shape = accumulate_shape(
+        curve, "te_gather_accumulate",
+        lambda: ak.te_gather_accumulate(curve, p.table, *runs),
+        lambda: ak.te_gather_accumulate_plain(curve, p.table, *runs),
+        int(runs[3].sum()), 8 + 4, p.g * (1 << (p.c - 1)), 0,
+        table_rows=p.m * p.n, windows=p.g, buckets=1 << (p.c - 1),
+        launches_per_msm=summary["launches_per_msm"]["te_gather_accumulate"])
+    return summary, shape
+
+
+def sorted_streamed_path(curve, ctx, dev):
+    """Phase 4b, the m = 1 sorted route (accum="sorted" on phase 4b's
+    table): a warm-up (its peak memory) and SORTED_BATCHES timed batches
+    against the default (gather) route, each MSM launching
+    te_bucket_accumulate n_win x ceil(n / sort_run) times and neither
+    te_gather_accumulate nor te_dbl_chain; one profiled MSM; then
+    te_bucket_accumulate at the route's shape (window 0's second run of
+    sort_run rows over 2^(c-1) buckets, from the first run's sums),
+    timed beside its plain version and its bound and checked against the
+    plain version."""
+    import dataclasses
+    from zprize_tpu_torch.msm import accum_kernel as ak
+    from zprize_tpu_torch.msm import pippenger, te_path
+    from zprize_tpu_torch.utils import oracle
+    p = ctx.prepared
+    run = ctx.sort_run
+    gen = torch.Generator(device=dev).manual_seed(SEED + PRIZE_LOG + 1)
+    n_win = pippenger.num_windows(curve, p.c)
+    per_msm = n_win * -(-p.n // run)
+    # the merge of all windows at full width: a running sum where the
+    # stack splits (at 2^26: 16 x 2^16 buckets)
+    merges = ("te_tree_sum", "te_combine") + (
+        ("te_running_sum",) if te_path.triangle_split(n_win, 1 << (p.c - 1))
+        else ())
+
+    def check(launched):
+        if (launched["te_bucket_accumulate"] != per_msm
+                or launched["te_gather_accumulate"]
+                or launched["te_dbl_chain"]
+                or 0 in (launched[name] for name in merges)):
+            raise AssertionError(f"sorted 2^{PRIZE_LOG} MSM launches "
+                                 f"{launched}, not {per_msm} "
+                                 "te_bucket_accumulate and the merges")
+
+    summary, host = route_ab(
+        curve, ctx, "sorted",
+        lambda k: oracle.scalar_batch_torch(curve, p.n, gen),
+        SORTED_BATCHES, check)
+    summary["sort_run"] = run
+    summary["profile"] = profile_msm(dataclasses.replace(ctx, accum="sorted"),
+                                     host)
+    s = torch.from_numpy(host.view(np.int16)).to(dev)
+    del host
+    nbe = 1 << (p.c - 1)
+    digits, _ = pippenger.signed_digits_range(
+        curve, p.c, 0, 1, s.t().contiguous(),
+        torch.zeros(p.n, dtype=torch.int32, device=dev))
+    del s
+    lo = run if p.n >= 2 * run else 0
+
+    def run_inputs(lo):
+        perm, sign, starts, counts = pippenger.sort_windows(
+            digits[:, lo:lo + run], nbe)
+        return p.table[lo:lo + run][perm[0]], sign[0], starts[0], counts[0]
+
+    init = ak.te_bucket_accumulate(curve, *run_inputs(0))
+    args = run_inputs(lo)
+    del digits
+    shape = accumulate_shape(
+        curve, "te_bucket_accumulate",
+        lambda: ak.te_bucket_accumulate(curve, *args, init),
+        lambda: ak.te_bucket_accumulate_plain(curve, *args, init),
+        int(args[3].sum()), 4, nbe, 1, rows=args[0].shape[0],
+        buckets=nbe, init=True, launches_per_msm=per_msm)
+    return summary, shape
+
+
+def accumulate_shape(curve, name, fn, plain, n_rows, row_extra_bytes,
+                     lanes, init_reads, **shape):
+    """An accumulate kernel at one route's shape: fn() timed (mean of 3
+    after a warm-up), plain() once, and the two held equal.  Bound:
+    n_rows mixed adds, against the bytes of n_rows operand rows (with
+    `row_extra_bytes` of index and sign each), and per lane its run's
+    bounds (16 bytes), its sum written and `init_reads` sums read."""
+    from zprize_tpu_torch.field import fp
+    nw = fp.n_words(curve.field)
+    ms = timed(fn, 3)
+    t0 = time.time()
+    ref = plain()
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    err = max_abs_err(fn(), ref)
+    if err != 0:
+        raise AssertionError(f"{name} != plain at {shape}")
+    b_ms, b_by = bound_ms(n_rows * MULMODS["madd"],
+                          n_rows * (3 * 4 * nw + row_extra_bytes)
+                          + lanes * (16 + (1 + init_reads) * 4 * 4 * nw))
+    log(f"{name} at {shape}: {ms:.4f} ms (plain {plain_ms:.1f} ms, bound "
+        f"{b_ms:.4f} ms by {b_by}), kernel == plain")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "max_abs_err": err, "library_ms": None,
+            "rows_in_buckets": n_rows, **shape}
 
 
 def tiled_points(curve, n, dev):
@@ -3031,14 +3300,27 @@ def main():
     ctx, aff, batch, launches, summary = main_path(curve, dev)
     summary["profile"] = profile_msm(ctx, batch)
     kernels = kernel_rows(curve, ctx, aff, batch, launches, lat, dev)
+    t0 = time.time()
+    gather, gather_shape = collapsed_gather_path(curve, ctx, dev)
+    log(f"phase 4, collapsed gather route: {time.time() - t0:.1f} s")
     del ctx, aff
     torch.cuda.empty_cache()
     ctx, batch, launches, prize = prize_path(curve, dev)
     prize["profile"] = profile_msm(ctx, batch)
     kernels.extend(prize_rows(curve, ctx, batch, launches,
                               prize["launches_per_msm"], lat, dev))
-    del ctx, batch
+    del batch
+    t0 = time.time()
+    sorted_msm, sorted_shape = sorted_streamed_path(curve, ctx, dev)
+    log(f"phase 4b, sorted route: {time.time() - t0:.1f} s")
+    del ctx
     torch.cuda.empty_cache()
+    # the accumulates' rows at the other routes' shapes
+    for row in kernels:
+        if row["name"] == "te_gather_accumulate":
+            row["collapsed_gather_2^18"] = gather_shape
+        elif row["name"] == "te_bucket_accumulate":
+            row[f"sorted_streamed_2^{PRIZE_LOG}"] = sorted_shape
     pk, wires, public, plonk_launches, plonk = plonk_path(dev)
     plonk["profile"] = profile_call("PLONK proof", lambda: prover.prove_planes(
         pk, wires, public, blinding_rng=random.Random(18)))
@@ -3076,6 +3358,8 @@ def main():
             row[f"launches_sharded_{part}_rank0"] = counts[row["name"]]
     print(json.dumps(summary), flush=True)
     print(json.dumps(prize), flush=True)
+    print(json.dumps(gather), flush=True)
+    print(json.dumps(sorted_msm), flush=True)
     print(json.dumps(plonk), flush=True)
     print(json.dumps(goldilocks), flush=True)
     print(json.dumps(sw_msm), flush=True)

@@ -167,19 +167,23 @@ __global__ void __launch_bounds__(BLOCK)
 // loop of accumulate_te_sorted (zprize_tpu/msm/accum_kernel.py).  Bound: 7
 // mulmods per row of the sorted table; the rows are read once (144 bytes
 // each).  Design: one thread per bucket walks its whole run of sorted rows
-// from the identity; a loop inside the thread takes the place of the TPU's
-// fixed-depth slabs and occupancy tiers.  Buckets of unequal size leave
-// threads idle at the end: balancing them is later work.
+// from the identity, or from its lane of `init` (nbe, 4, 12) where init is
+// not null: the init lanes of accumulate_te_sorted, through which the
+// sorted-streamed MSM chains a window's runs of rows with no extra add.
+// A thread reads its init lane before it writes the same lane of out, so
+// out may be init itself.  A loop inside the thread takes the place of the
+// TPU's fixed-depth slabs and occupancy tiers.  Buckets of unequal size
+// leave threads idle at the end: balancing them is later work.
 __global__ void __launch_bounds__(BLOCK)
     k_bucket_accumulate(const uint32_t* params, const uint32_t* rows,
                         const int32_t* sign, const long long* starts,
-                        const long long* counts, uint32_t* out,
-                        long long nbe) {
+                        const long long* counts, const uint32_t* init,
+                        uint32_t* out, long long nbe) {
   __shared__ Params P;
   fq::load_params(P, params);
   long long b = (long long)blockIdx.x * BLOCK + threadIdx.x;
   if (b >= nbe) return;
-  Pt acc = identity(P);
+  Pt acc = init != nullptr ? load_pt(init + b * PT_WORDS) : identity(P);
   long long r0 = starts[b], r1 = starts[b] + counts[b];
 #pragma unroll 1
   for (long long r = r0; r < r1; ++r) {
@@ -690,12 +694,13 @@ int te_dbl_chain(const void* params, const void* in, void* out, long long n,
 
 int te_bucket_accumulate(const void* params, const void* rows,
                          const void* sign, const void* starts,
-                         const void* counts, void* out, long long nbe,
-                         void* stream) {
+                         const void* counts, const void* init, void* out,
+                         long long nbe, void* stream) {
   if (nbe <= 0) return 0;
   k_bucket_accumulate<<<grid_for(nbe), BLOCK, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)params, (const uint32_t*)rows, (const int32_t*)sign,
-      (const long long*)starts, (const long long*)counts, (uint32_t*)out, nbe);
+      (const long long*)starts, (const long long*)counts,
+      (const uint32_t*)init, (uint32_t*)out, nbe);
   return (int)cudaGetLastError();
 }
 

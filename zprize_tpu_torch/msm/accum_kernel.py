@@ -70,7 +70,8 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("msm_te")
     vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.te_dbl_chain.argtypes = [vp, vp, vp, ll, ci, vp]
-    lib.te_bucket_accumulate.argtypes = [vp, vp, vp, vp, vp, vp, ll, vp]
+    lib.te_bucket_accumulate.argtypes = [vp, vp, vp, vp, vp, vp, vp, ll,
+                                         vp]
     lib.te_gather_accumulate.argtypes = [vp, vp, vp, vp, vp, vp, vp, ll, ll,
                                          ll, vp]
     lib.te_full_add.argtypes = [vp, vp, vp, vp, vp, ll, vp]
@@ -197,13 +198,17 @@ def te_dbl_chain_plain(curve: CurveSpec, pts: torch.Tensor, n_dbls: int
 
 def te_bucket_accumulate(curve: CurveSpec, rows: torch.Tensor,
                          sign: torch.Tensor, starts: torch.Tensor,
-                         counts: torch.Tensor) -> torch.Tensor:
+                         counts: torch.Tensor,
+                         init: torch.Tensor | None = None) -> torch.Tensor:
     """Bucket sums over a bucket-sorted operand table.
 
     rows (R, 3, nw) holds the precomputed operands sorted by bucket, sign
     (R,) int32 marks operands to subtract, and bucket b is the run
     rows[starts[b] : starts[b] + counts[b]] (int64).  Returns the
-    (nbe, 4, nw) extended sums, each starting from the identity."""
+    (nbe, 4, nw) extended sums, each starting from the identity, or with
+    `init` (nbe, 4, nw) int32 from init[b]: an empty run gives init[b]
+    unchanged, so runs of rows chain through repeated calls.  The result
+    is a new tensor; `init` is only read (never aliased or written)."""
     _check("rows", rows, _pt_tail(curve, 3))
     if rows.dim() != 3:
         raise ValueError(f"rows: expected (R, 3, nw), got {tuple(rows.shape)}")
@@ -211,26 +216,39 @@ def te_bucket_accumulate(curve: CurveSpec, rows: torch.Tensor,
     nbe = starts.shape[0]
     _check("starts", starts, (nbe,), torch.int64)
     _check("counts", counts, (nbe,), torch.int64)
-    if not _device.on_card(rows, sign, starts, counts):
-        return te_bucket_accumulate_plain(curve, rows, sign, starts, counts)
+    tensors = (rows, sign, starts, counts)
+    if init is not None:
+        _check("init", init, (nbe, *_pt_tail(curve)))
+        if init.dim() != 3:
+            raise ValueError(f"init: expected (nbe, 4, nw), got "
+                             f"{tuple(init.shape)}")
+        tensors += (init,)
+    if not _device.on_card(*tensors):
+        return te_bucket_accumulate_plain(curve, rows, sign, starts, counts,
+                                          init)
     out = torch.empty((nbe, *_pt_tail(curve)), dtype=torch.int32,
                       device=rows.device)
     rc = _lib().te_bucket_accumulate(
         device_params(curve, rows.device).data_ptr(), rows.data_ptr(),
         sign.data_ptr(), starts.data_ptr(), counts.data_ptr(),
-        out.data_ptr(), nbe, _device.stream(rows))
+        None if init is None else init.data_ptr(), out.data_ptr(), nbe,
+        _device.stream(rows))
     _launch("te_bucket_accumulate", rc)
     return out
 
 
 def te_bucket_accumulate_plain(curve: CurveSpec, rows: torch.Tensor,
                                sign: torch.Tensor, starts: torch.Tensor,
-                               counts: torch.Tensor) -> torch.Tensor:
-    """Rank-by-rank over all buckets up to the largest count; a bucket
-    whose run has ended keeps its sum (a select, not an identity operand,
-    so the projective result equals the kernel's walk)."""
+                               counts: torch.Tensor,
+                               init: torch.Tensor | None = None
+                               ) -> torch.Tensor:
+    """Rank-by-rank over all buckets up to the largest count, from the
+    identity or from `init`; a bucket whose run has ended keeps its sum (a
+    select, not an identity operand, so the projective result equals the
+    kernel's walk)."""
     nbe = starts.shape[0]
-    acc = te.identity(curve, (nbe,), rows.device)
+    acc = (te.identity(curve, (nbe,), rows.device) if init is None
+           else te.unpack(init))
     depth = int(counts.max()) if nbe else 0
     for r in range(depth):
         valid = r < counts

@@ -27,12 +27,17 @@ class MsmContext:
     affine planes; its window width is `prepared.c`.  Beyond that the MSM
     reads only the points' infinity flags, so `points` keeps those and
     empty coordinate planes (at 2^26 the coordinates would hold 6.4 GB).
-    `window_budget` bounds the bytes of the m = 1 TE route's windows in
-    flight (None: from the card's free memory)."""
+    `window_budget` bounds the bytes of the m = 1 gather route's windows
+    in flight (None: from the card's free memory).  `accum` picks the TE
+    accumulate ("sorted", "gather", or None for the table's default:
+    `pippenger.accum_route`), `sort_run` the rows a run of the m = 1
+    sorted route."""
     curve: CurveSpec
     points: sw.Affine
     prepared: pippenger.PreparedTe | pippenger.PreparedSw
     window_budget: int | None = None
+    accum: str | None = None
+    sort_run: int = pippenger.SORT_RUN
 
     @property
     def device(self) -> torch.device:
@@ -43,12 +48,16 @@ def multi_scalar_mult_init(curve: CurveSpec, points_xy,
                            window_bits: int | None = None,
                            device=None, collapse: bool = True,
                            window_budget: int | None = None,
-                           te: bool | None = None) -> MsmContext:
+                           te: bool | None = None, accum: str | None = None,
+                           sort_run: int = pippenger.SORT_RUN
+                           ) -> MsmContext:
     """points_xy: python int pairs [(x, y) | None], or an `sw.Affine` of
     Montgomery word planes.  Prepares them once, on `device`, through
     `pippenger.prepare_points`: the TE route wherever the curve has a TE
     form unless `te=False` (the table's plan: m = 1 from 2^24 points, or
-    with `collapse=False`), else the SW route."""
+    with `collapse=False`), else the SW route.  `accum` and `sort_run`
+    pick the TE accumulate (`MsmContext`); a bad value raises ValueError
+    here, before any MSM."""
     dev = resolve_device(device)
     if isinstance(points_xy, sw.Affine):
         aff = sw.Affine(*(a.to(dev) for a in points_xy))
@@ -60,11 +69,14 @@ def multi_scalar_mult_init(curve: CurveSpec, points_xy,
             fp.from_ints(f, [1 if p is None else p[1] for p in points_xy],
                          dev),
             torch.tensor([p is None for p in points_xy], device=dev))
+    if sort_run < 1:
+        raise ValueError(f"sort_run must be positive, got {sort_run}")
     prepared = pippenger.prepare_points(curve, aff, window_bits,
                                         collapse=collapse, te=te)
+    pippenger.accum_route(prepared, accum)
     empty = aff.x.new_empty((0, aff.x.shape[-1]))
     return MsmContext(curve, sw.Affine(empty, empty, aff.inf), prepared,
-                      window_budget)
+                      window_budget, accum, sort_run)
 
 
 def _limbs(batch) -> torch.Tensor:
@@ -87,5 +99,6 @@ def multi_scalar_mult(ctx: MsmContext, scalars) -> list[sw.Point]:
         scalars = scalars[None]
     return [pippenger.msm(ctx.curve, ctx.points, _limbs(s).to(ctx.device),
                           prepared=ctx.prepared,
-                          window_budget=ctx.window_budget)
+                          window_budget=ctx.window_budget, accum=ctx.accum,
+                          sort_run=ctx.sort_run)
             for s in scalars]

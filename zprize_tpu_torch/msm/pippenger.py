@@ -3,32 +3,44 @@ and the short-Weierstrass route (any a = 0 curve; BLS12-381 G1).
 
 `prepare_points` picks the route: TE wherever the curve has a TE form,
 unless the caller passes te=False (the reference package's ZPRIZE_TE=0);
-SW otherwise.  The TE routes are chosen by the plan (c, g, m) of
+SW otherwise.  The TE tables are chosen by the plan (c, g, m) of
 `plan_collapse` (the reference package's choice: m > 1 below 2^23
 points, m = 1 from 2^24), or m = 1 when the caller asks for no collapse.
+Each table has two accumulates, picked by `msm(..., accum=)` (the
+reference's ZPRIZE_ACCUM; `accum_route`): "sorted" by default at m > 1,
+"gather" by default at m = 1.
 
-The collapsed TE route (m > 1):
+The collapsed TE table (m > 1):
 
 1. init: the window-collapse table of m multiples 2^(c*g*j)·P
    (`te_path.prepare_points_collapsed`, kernel `te_dbl_chain`);
 2. MSB-negated signed c-bit digits, folded from m*g windows onto g bucket
-   sets (`signed_digits`);
-3. per bucket set, the table rows sorted by |digit| (`torch.sort`, bucket
-   runs by `torch.searchsorted`) and summed per bucket (kernel
-   `te_bucket_accumulate`).
+   sets (`collapsed_digits`);
+3. "sorted": per bucket set, the table rows sorted by |digit|
+   (`torch.sort`, bucket runs by `torch.searchsorted`) and summed per
+   bucket (kernel `te_bucket_accumulate`); "gather"
+   (`collapsed_gather_sums`): one sort of each set by |digit|
+   (`sort_windows`) and the sums of all g sets in one launch of
+   `te_gather_accumulate`, which reads the table through the permutation
+   (no sorted copy of the table).
 
-The m = 1 TE route (`window_sums_m1`):
+The m = 1 TE table:
 
 1. init: one operand per point (`te_path.prepare_points`, in blocks);
-2. windows in chunks, as many in flight as the memory plan allows
-   (`windows_in_flight`): signed digits of the chunk with the carry
-   riding between chunks (`signed_digits_range`), a sort of each window
-   by |digit| (`sort_windows`), and the bucket sums read through the sort
-   permutation straight from the table (kernel `te_gather_accumulate`).
+2. "gather" (`window_sums_m1`): windows in chunks, as many in flight as
+   the memory plan allows (`windows_in_flight`): signed digits of the
+   chunk with the carry riding between chunks (`signed_digits_range`), a
+   sort of each window by |digit| (`sort_windows`), and the bucket sums
+   read through the sort permutation straight from the table (kernel
+   `te_gather_accumulate`);
+   "sorted" (`window_sums_sorted`): one window at a time, its rows cut
+   into runs of `sort_run`, each run's rows sorted by |digit| and copied
+   in that order, and summed by `te_bucket_accumulate` chained through
+   its init lanes from the run before.
 
-Both then take sum_b b*B_b per window (triangle merge, or bit-decomposed
-below 1024 buckets; kernels `te_running_sum`, `te_tree_sum` and
-`te_combine`), the window
+All then take sum_b b*B_b per window (`merge_windows`: triangle merge,
+or bit-decomposed below 1024 buckets; kernels `te_running_sum`,
+`te_tree_sum` and `te_combine`), the window
 combine (kernel `te_combine`) and the exact TE->SW conversion of the
 single result on the host.
 
@@ -82,6 +94,13 @@ from .accum_kernel import (sw_accumulate_ranks, sw_combine,
 # the largest window the digit extraction takes: a window spans at most
 # three base-2^15 limbs (18 at BASE_BITS = 15)
 C_MAX = 32 - BASE_BITS + 1
+
+# the TE routes' accumulates (`accum_route`)
+ACCUM_ROUTES = ("sorted", "gather")
+# rows of the table a run of the m = 1 sorted route sorts and sums at once
+# (the reference's ZPRIZE_SORT_RUN_LOG = 23): at 2^23 rows a run's sorted
+# copy holds 1.2 GB
+SORT_RUN = 1 << 23
 
 
 def default_window_bits(n: int) -> int:
@@ -265,38 +284,82 @@ def prepare_points(curve: CurveSpec, points: sw.Affine, c: int | None = None,
     return PreparedTe(table, c, g, m, n)
 
 
+def accum_route(prepared: PreparedTe | PreparedSw, accum: str | None
+                ) -> str | None:
+    """The accumulate an MSM over `prepared` takes: `accum`, one of
+    ACCUM_ROUTES, or by default the reference's (ZPRIZE_ACCUM unset):
+    "sorted" for a collapsed table (m > 1), "gather" for m = 1.  None on
+    the SW route, which has one accumulate.  Raises ValueError for any
+    other value, and for an `accum` on the SW route."""
+    if accum is not None and accum not in ACCUM_ROUTES:
+        raise ValueError(f"accum must be one of {ACCUM_ROUTES} or None, "
+                         f"got {accum!r}")
+    if isinstance(prepared, PreparedSw):
+        if accum is not None:
+            raise ValueError("accum picks a TE route's accumulate; the SW "
+                             "route has one")
+        return None
+    if accum is None:
+        return "sorted" if prepared.m > 1 else "gather"
+    return accum
+
+
 def msm(curve: CurveSpec, points: sw.Affine, scalars: torch.Tensor,
         c: int | None = None, prepared: PreparedTe | PreparedSw | None = None,
         window_budget: int | None = None, cap: int | None = None,
-        te: bool | None = None) -> sw.Point:
+        te: bool | None = None, accum: str | None = None,
+        sort_run: int = SORT_RUN) -> sw.Point:
     """sum_i scalars[i] * points[i] for canonical scalar limb planes
     (n, L) (base 2^15, limbs < 2^15: the benchmark's compact form, also
     as its int16 view), as a projective point of host words.  Only
     points.inf is read when `prepared` is given; without it `c` and `te`
-    go to `prepare_points`.  `window_budget` bounds the bytes the m = 1
-    TE route's windows in flight may hold (default: from the card's free
-    memory; no bound on the CPU).  `cap` is the reference's per-pass
-    occupancy cap, kept for API parity: every bucket run is walked whole.
-    The result depends on neither."""
+    go to `prepare_points`.  `accum` picks the TE accumulate
+    (`accum_route`).  `window_budget` bounds the bytes the m = 1 gather
+    route's windows in flight may hold (default: from the card's free
+    memory; no bound on the CPU); `sort_run` is the rows a run of the
+    m = 1 sorted route.  `cap` is the reference's per-pass occupancy cap,
+    kept for API parity: every bucket run is walked whole.  The result
+    depends on none of them."""
     if prepared is None:
         prepared = prepare_points(curve, points, c, te=te)
+    route = accum_route(prepared, accum)
     if isinstance(prepared, PreparedSw):
         return sw.Point(*msm_sw(curve, prepared, points.inf,
                                 scalars).cpu().unbind(-2))
-    if prepared.m == 1:
-        sums = window_sums_m1(curve, prepared, points.inf, scalars,
-                              window_budget)
-        combined = te_path.combine_windows_te(curve, prepared.c, sums)
+    c = prepared.c
+    if prepared.m > 1 and route == "sorted":
+        sums = torch.stack([te_bucket_accumulate(curve, *run) for run in
+                            bucket_runs(curve, prepared, points.inf,
+                                        scalars)])
+        merged = merge_windows(curve, c, sums)
+    elif prepared.m > 1:
+        merged = merge_windows(curve, c, collapsed_gather_sums(
+            curve, prepared, points.inf, scalars))
+    elif route == "sorted":
+        merged = merge_windows(curve, c, window_sums_sorted(
+            curve, prepared, points.inf, scalars, sort_run))
     else:
-        combined = _msm_te_sorted(curve, prepared, points.inf, scalars)
-    return _te_result_host(curve, combined)
+        merged = window_sums_m1(curve, prepared, points.inf, scalars,
+                                window_budget)
+    return _te_result_host(curve, te_path.combine_windows_te(curve, c,
+                                                             merged))
 
 
-def bucket_runs(curve: CurveSpec, prep: PreparedTe, inf: torch.Tensor,
-                scalars: torch.Tensor):
-    """Yield, per bucket set, the inputs of `te_bucket_accumulate`: the
-    table rows sorted by |digit| (rows, sign) and each bucket's run
-    (starts, counts) for buckets 1..2^(c-1)."""
+def merge_windows(curve: CurveSpec, c: int, sums: torch.Tensor
+                  ) -> torch.Tensor:
+    """sum_b b*B_b per window of bucket sums (W, nbe, 4, nw) -> (W, 4, nw):
+    the triangle merge where `te_path.triangle_split` splits the stack,
+    else the bit-decomposed merge."""
+    if te_path.triangle_split(*sums.shape[:2]) is not None:
+        return te_path.merge_buckets_te_triangle(curve, c, sums)
+    return te_path.merge_buckets_te(curve, c, sums)
+
+
+def collapsed_digits(curve: CurveSpec, prep: PreparedTe, inf: torch.Tensor,
+                     scalars: torch.Tensor) -> torch.Tensor:
+    """The collapsed table's digits (g, m*n) int64: window j*g + gi of
+    point i goes to bucket set gi at table row j*n + i; zero for points
+    at infinity."""
     c, g, m, n = prep.c, prep.g, prep.m, prep.n
     dev = prep.table.device
     if tuple(scalars.shape[:1]) != (n,) or tuple(inf.shape) != (n,):
@@ -304,12 +367,18 @@ def bucket_runs(curve: CurveSpec, prep: PreparedTe, inf: torch.Tensor,
                          f"{tuple(scalars.shape)} and {tuple(inf.shape)}")
     n_win = num_windows(curve, c)
     digits = signed_digits(curve, c, n_win, scalars.to(dev))
-    # window j*g + gi of point i -> bucket set gi, table row j*n + i
     digits = torch.nn.functional.pad(digits, (0, 0, 0, m * g - n_win))
     digits = digits.reshape(m, g, n).transpose(0, 1).reshape(g, m * n)
-    digits = torch.where(inf.to(dev).repeat(m)[None, :], 0, digits)
-    buckets = torch.arange(1, (1 << (c - 1)) + 1, device=dev)
-    for d in digits:
+    return torch.where(inf.to(dev).repeat(m)[None, :], 0, digits)
+
+
+def bucket_runs(curve: CurveSpec, prep: PreparedTe, inf: torch.Tensor,
+                scalars: torch.Tensor):
+    """Yield, per bucket set, the inputs of `te_bucket_accumulate`: the
+    table rows sorted by |digit| (rows, sign) and each bucket's run
+    (starts, counts) for buckets 1..2^(c-1)."""
+    buckets = torch.arange(1, (1 << (prep.c - 1)) + 1, device=prep.device)
+    for d in collapsed_digits(curve, prep, inf, scalars):
         key, perm = torch.sort(d.abs())
         starts = torch.searchsorted(key, buckets)
         counts = torch.searchsorted(key, buckets, right=True) - starts
@@ -317,18 +386,19 @@ def bucket_runs(curve: CurveSpec, prep: PreparedTe, inf: torch.Tensor,
                counts)
 
 
-def _msm_te_sorted(curve: CurveSpec, prep: PreparedTe, inf: torch.Tensor,
-                   scalars: torch.Tensor) -> torch.Tensor:
-    """Bucket sort -> accumulate -> merge -> combine; returns the combined
-    extended TE point (4, nw) on the device."""
-    c, g = prep.c, prep.g
-    sums = torch.stack([te_bucket_accumulate(curve, *run)
-                        for run in bucket_runs(curve, prep, inf, scalars)])
-    if te_path.triangle_split(g, sums.shape[1]) is not None:
-        merged = te_path.merge_buckets_te_triangle(curve, c, sums)
-    else:
-        merged = te_path.merge_buckets_te(curve, c, sums)
-    return te_path.combine_windows_te(curve, c, merged)
+def collapsed_gather_sums(curve: CurveSpec, prep: PreparedTe,
+                          inf: torch.Tensor, scalars: torch.Tensor
+                          ) -> torch.Tensor:
+    """The collapsed table's gather accumulate (the reference's
+    ZPRIZE_ACCUM=gather at m > 1): one sort of each of the g bucket sets
+    by |digit| (`sort_windows`) and the (g, 2^(c-1), 4, nw) bucket sums
+    of all of them in one `te_gather_accumulate` launch, which reads the
+    m*n table rows through the permutation: no sorted copy of the table
+    is written."""
+    digits = collapsed_digits(curve, prep, inf, scalars).to(torch.int32)
+    runs = sort_windows(digits, 1 << (prep.c - 1))
+    del digits
+    return te_gather_accumulate(curve, prep.table, *runs)
 
 
 def window_groups(curve: CurveSpec, c: int, n_win: int, full_nbe: int
@@ -425,13 +495,50 @@ def window_sums_m1(curve: CurveSpec, prep: PreparedTe, inf: torch.Tensor,
             del digits
             sums = te_gather_accumulate(curve, prep.table, *runs)
             del runs
-            if te_path.triangle_split(hi - lo, nbe) is not None:
-                merged = te_path.merge_buckets_te_triangle(curve, c, sums)
-            else:
-                merged = te_path.merge_buckets_te(curve, c, sums)
+            window_sums[lo:hi] = merge_windows(curve, c, sums)
             del sums
-            window_sums[lo:hi] = merged
     return torch.stack(window_sums)
+
+
+def window_sums_sorted(curve: CurveSpec, prep: PreparedTe,
+                       inf: torch.Tensor, scalars: torch.Tensor,
+                       sort_run: int = SORT_RUN) -> torch.Tensor:
+    """The m = 1 sorted route up to the merge (the reference's
+    `_msm_te_sorted_streamed`, ZPRIZE_ACCUM=sorted at m = 1): one window
+    at a time, its signed digits (`signed_digits_range`, the carry riding
+    from the window before; zero at infinity), and per run of `sort_run`
+    table rows, the run sorted by |digit| (`sort_windows`), its rows
+    copied in that order (one gather), and `te_bucket_accumulate` over
+    buckets 1..2^(c-1) starting from the sums of the run before (its init
+    lanes).  Every window takes the full 2^(c-1) buckets.  Beyond the
+    table, the device holds one window's digits, one run's sorted rows
+    (dropped before the next run's are made) and the bucket sums.
+    Returns the (n_win, 2^(c-1), 4, nw) bucket sums."""
+    c, n = prep.c, prep.n
+    dev = prep.table.device
+    _check_inputs(n, scalars, inf)
+    if sort_run < 1:
+        raise ValueError(f"sort_run must be positive, got {sort_run}")
+    nbe = 1 << (c - 1)
+    limbs = scalars.to(dev).t().contiguous()                    # (L, n)
+    inf = inf.to(dev)
+    carry = torch.zeros(n, dtype=torch.int32, device=dev)
+    sums = []
+    for w in range(num_windows(curve, c)):
+        digits, carry = signed_digits_range(curve, c, w, w + 1, limbs,
+                                            carry)
+        digits.masked_fill_(inf, 0)
+        part = None
+        for lo in range(0, n, sort_run):
+            hi = min(n, lo + sort_run)
+            perm, sign, starts, counts = sort_windows(digits[:, lo:hi], nbe)
+            rows = prep.table[lo:hi][perm[0]]
+            del perm
+            part = te_bucket_accumulate(curve, rows, sign[0], starts[0],
+                                        counts[0], part)
+            del rows, sign
+        sums.append(part)
+    return torch.stack(sums)
 
 
 def _te_result_host(curve: CurveSpec, combined: torch.Tensor) -> sw.Point:
