@@ -120,7 +120,13 @@ In order, each phase raising on failure (so the exit code is non-zero):
    one profiled proof (device time of each port kernel and of the torch
    ops), the Fr NTT's row at the path's shapes (2^18 forward, B = 1; 2^16
    inverse, B = 3; 2^16 forward, B = 1; with phase 3b's profile), and
-   te_full_add's row at the SRS's shape.
+   te_full_add's row at the SRS's shape.  Before the profile, on the same
+   SRS: `kzg.verify_with_trapdoor` must accept an opening made on the card
+   by `kzg.commit`/`open_at` and reject it with y + 1 and with a wrong
+   witness, agreeing with `kzg.verify` on all three; and the proof's
+   commitments, the first 8 SRS powers and the identity must come back
+   from `serialize_points`/`deserialize_points` (96 bytes a record, the
+   identity's flag 0x40 in its last byte).
 
 8. (run right after 3c, before any other profile) drives the Goldilocks
    NTT at bench.py's size (`BENCH_METRIC=ntt` of the reference: 2^24
@@ -305,11 +311,13 @@ TREE_CASES = ((1, 1, None), (1, 1, 0), (1, 1, 1), (3, 64, 0), (2, 64, 1),
               (2, 3 * 64 + 17, 1), (5, 1000, 0), (4, 777, None),
               (1, 8192, 0))
 # seconds a profiler window stays open before and after the call it
-# traces: the profiler keeps a device event only inside its window, with
-# the card's timestamps mapped onto the host clock, and in some processes
-# that mapping put the first kernel of a window opened just before its
-# launch outside the window (phase 8's chain lost it in every attempt)
-TRACE_MARGIN_S = 0.05
+# traces, by attempt: the profiler keeps a device event only inside its
+# window, with the card's timestamps mapped onto the host clock, and in
+# some processes that mapping put the first kernel of a window opened just
+# before its launch outside the window (phase 8's chain lost one of its 16
+# kernels in each of 3 attempts at 0.05 s), so a window that falls short
+# is opened again with a wider margin
+TRACE_MARGINS_S = (0.05, 0.25, 1.0, 4.0)
 # each port kernel's CUDA entry points (csrc/), to find them in a profile
 KERNEL_SYMBOLS = {"te_dbl_chain": ("k_dbl_chain",),
                   "te_bucket_accumulate": ("k_bucket_accumulate",),
@@ -1422,32 +1430,52 @@ def device_kernels(prof):
     return [(ms, n, name) for name, (ms, n) in sums.items()]
 
 
-def profile_call(label, fn, attempts=3, host_ops=True):
+def device_span_ms(prof):
+    """[first start, last end] of the device events a finished trace kept,
+    in ms from the trace's first host event, or None without them."""
+    from torch.autograd import DeviceType
+    events = list(prof.profiler.kineto_results.events())
+    dev = [(e.start_ns(), e.duration_ns()) for e in events
+           if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0]
+    host = [e.start_ns() for e in events
+            if e.device_type() != DeviceType.CUDA]
+    if not dev:
+        return None
+    origin = min(host) if host else min(t for t, _ in dev)
+    return [(min(t for t, _ in dev) - origin) / 1e6,
+            (max(t + d for t, d in dev) - origin) / 1e6]
+
+
+def profile_call(label, fn, host_ops=True):
     """One call of fn under torch.profiler (after one unprofiled call):
     device time by kernel and the device busy share of the call's wall
     time.  The trace can miss device events (seen late in a run, after
-    the large profiles: none, or half, of a short window's kernels), so
-    the port's kernels in the trace are held against their launch counts
-    in the same window; a window that falls short is profiled again, up
-    to `attempts` times, and the result says whether it was complete.
-    With `host_ops` False only the device is traced (the host ops of a
-    call of some 10^5 torch ops, a PoSW batch, stretch its wall time).
-    The device events are summed by kernel name from the profiler's raw
-    events: torch's own summary (`key_averages`) first builds its event
-    tree, some 45 s for a PoSW batch's 2 x 10^5 device events."""
+    the large profiles: none, or half, of a short window's kernels; and
+    early, one kernel of 16 in a window of 0.05 s margins), so the port's
+    kernels in the trace are held against their launch counts in the same
+    window; a window that falls short is profiled again with the next,
+    wider margin of TRACE_MARGINS_S, each short attempt is logged with the
+    host-clock span of the device events it kept, and the result says
+    whether it was complete.  With `host_ops` False only the device is
+    traced (the host ops of a call of some 10^5 torch ops, a PoSW batch,
+    stretch its wall time).  The device events are summed by kernel name
+    from the profiler's raw events: torch's own summary (`key_averages`)
+    first builds its event tree, some 45 s for a PoSW batch's 2 x 10^5
+    device events."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for attempt in range(1, attempts + 1):
+    short = []
+    for attempt, margin in enumerate(TRACE_MARGINS_S, 1):
         before = port_launches()
         with profile(activities=[ProfilerActivity.CPU] * host_ops
                      + [ProfilerActivity.CUDA]) as prof:
-            time.sleep(TRACE_MARGIN_S)
+            time.sleep(margin)
             t0 = time.time()
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.time() - t0) * 1e3
-            time.sleep(TRACE_MARGIN_S)
+            time.sleep(margin)
         launched = {k: v - before[k] for k, v in port_launches().items()
                     if v > before[k]}
         by_kernel = device_kernels(prof)
@@ -1459,6 +1487,12 @@ def profile_call(label, fn, attempts=3, host_ops=True):
             traced[name] >= launched[name] for name in launched)
         if complete:
             break
+        span = device_span_ms(prof)
+        short.append({"margin_s": margin, "traced": traced,
+                      "device_span_ms": span})
+        log(f"profiled {label}: attempt {attempt} at a {margin} s margin "
+            f"traced {traced} of {launched}; device events span {span} ms "
+            "of the window")
     by_kernel.sort(reverse=True)
     busy = sum(ms for ms, _, _ in by_kernel)
     # device ms of the port's kernels (by their CUDA symbols); the rest is
@@ -1471,6 +1505,7 @@ def profile_call(label, fn, attempts=3, host_ops=True):
                      if not any(s in k for symbols in KERNEL_SYMBOLS.values()
                                 for s in symbols)})
     out = {"profile_wall_ms": wall_ms, "attempts": attempt,
+           "margin_s": margin, "short_attempts": short,
            "complete": complete, "launched": launched, "traced": traced,
            "device_busy_ms": busy if by_kernel else "not measured",
            "device_idle_share": (1 - busy / wall_ms) if complete
@@ -2245,7 +2280,7 @@ def plonk_path(dev, n_proofs=PLONK_PROOFS, height=PLONK_HEIGHT):
     verified, and two rejections."""
     from zprize_tpu_torch.curve.spec import BLS12_377_G1
     from zprize_tpu_torch.field import fp
-    from zprize_tpu_torch.hash.grain import snarkvm_config
+    from zprize_tpu_torch.hash.poseidon import default_fr377_sponge_config
     from zprize_tpu_torch.msm import accum_kernel as ak
     from zprize_tpu_torch.ntt import fr_kernel
     from zprize_tpu_torch.pcs import kzg
@@ -2261,8 +2296,8 @@ def plonk_path(dev, n_proofs=PLONK_PROOFS, height=PLONK_HEIGHT):
                 **fr_kernel.launches}
 
     t0 = time.time()
-    cc, assignment, public = plonk_witness(snarkvm_config(fr, 2), fr,
-                                           n_proofs, height, rng, dev)
+    cc, assignment, public = plonk_witness(default_fr377_sponge_config(),
+                                           fr, n_proofs, height, rng, dev)
     circuit_s = time.time() - t0
     log(f"plonk: {n_proofs} membership proofs x height {height} -> n = "
         f"{cc.n} ({len(cc.public_rows)} public rows), circuit and witness "
@@ -2331,6 +2366,7 @@ def plonk_path(dev, n_proofs=PLONK_PROOFS, height=PLONK_HEIGHT):
     log("tampered evaluation and wrong public input rejected")
     tr_s = transcript_s(curve, vk, proof, public)
     log(f"one proof's transcript on the host: {tr_s:.3f} s")
+    extras = trapdoor_and_bytes(srs, proof, dev)
     mean = sum(times[1:]) / PLONK_TIMED
     summary = {
         "metric": f"bls12_377_plonk_n{cc.n}",
@@ -2346,8 +2382,81 @@ def plonk_path(dev, n_proofs=PLONK_PROOFS, height=PLONK_HEIGHT):
         "launches_warmup_proof": per_proof[0],
         "launches_per_proof": per_proof[-1],
         "verified_proofs": PLONK_TIMED + 1, "rejected": 2,
+        **extras,
     }
     return pk, wires, public, path_launches, summary
+
+
+def trapdoor_and_bytes(srs, proof, dev):
+    """Phase 7's trapdoor check and byte form of points: an opening made on
+    the card by `kzg.commit` and `open_at` (the proof's length, whose table
+    the prover built), and the same with y + 1 and with W + G, each through
+    `verify_with_trapdoor` and `kzg.verify`, which must agree (the honest
+    opening accepted, both others rejected); then the proof's nine
+    commitments, the first 8 SRS powers and the identity through
+    `serialize_points` and back (96 bytes a record)."""
+    from zprize_tpu_torch.field import fp
+    from zprize_tpu_torch.pcs import kzg
+    from zprize_tpu_torch.utils import native, oracle
+    curve = srs.curve
+    fr, f = curve.scalar, curve.field
+    rng = random.Random(7)
+    t0 = time.time()
+    n = srs.size - 8
+    coeffs = random_elems(fp, fr, (n,), rng, dev)
+    z = fp.from_ints(fr, [rng.randrange(fr.p)], dev)[0]
+    com = kzg.commit(srs, coeffs)
+    w, y = kzg.open_at(srs, coeffs, z)
+    torch.cuda.synchronize()
+    open_s = time.time() - t0
+    w_pt = kzg.point_ints(curve, w)
+    openings = {
+        "honest": (com, z, y, w),
+        "y_plus_1": (com, z, (kzg.fr_int(curve, y) + 1) % fr.p, w),
+        "wrong_witness": (com, z, y, oracle.ec_add(
+            w_pt, oracle.generator(curve), f.p)),
+    }
+    verdicts, pairing, trapdoor_s, verify_s = {}, {}, {}, {}
+    for case, args in openings.items():
+        t0 = time.time()
+        verdicts[case] = kzg.verify_with_trapdoor(srs, *args)
+        trapdoor_s[case] = time.time() - t0
+        t0 = time.time()
+        pairing[case] = kzg.verify(srs, *args)
+        verify_s[case] = time.time() - t0
+    expect = {"honest": True, "y_plus_1": False, "wrong_witness": False}
+    if verdicts != expect or pairing != expect:
+        raise AssertionError(f"trapdoor verdicts {verdicts}, kzg.verify "
+                             f"{pairing}, expected {expect}")
+    log(f"trapdoor check on an opening of {n} coefficients made on the card "
+        f"({open_s:.3f} s): {verdicts}, as kzg.verify; seconds "
+        f"{trapdoor_s} against kzg.verify's {verify_s}")
+
+    comms = [*proof.wire_comms, proof.z_comm, *proof.t_comms, proof.w_zeta,
+             proof.w_zeta_omega]
+    pts = [kzg.point_ints(curve, c) for c in comms]
+    g1 = srs.g1_powers
+    pts += [None if inf else (int(x), int(y)) for x, y, inf in zip(
+        fp.to_ints(f, g1.x[:8]), fp.to_ints(f, g1.y[:8]),
+        g1.inf[:8].tolist())]
+    pts.append(None)
+    t0 = time.time()
+    data = native.serialize_points(curve, pts)
+    back = native.deserialize_points(curve, data)
+    bytes_s = time.time() - t0
+    if (len(data) != 96 * len(pts) or back != pts
+            or data[:48] != pts[0][0].to_bytes(48, "little")
+            or data[-96:] != bytes(95) + b"\x40"):
+        raise AssertionError("the byte form of the commitments and SRS powers "
+                             "did not round-trip")
+    log(f"byte form: {len(comms)} commitments, 8 SRS powers and the identity "
+        f"in {len(data)} bytes, round trip exact in {bytes_s * 1e3:.3f} ms, "
+        f"identity flag 0x40")
+    return {"trapdoor": verdicts, "trapdoor_kzg_verify": pairing,
+            "trapdoor_open_n": n, "trapdoor_open_s": open_s,
+            "trapdoor_s": trapdoor_s, "trapdoor_verify_s": verify_s,
+            "point_bytes": {"records": len(pts), "bytes": len(data),
+                            "round_trip": True, "seconds": bytes_s}}
 
 
 def verify_circuit(fr, n_constraints):

@@ -40,6 +40,16 @@ def test_grain_copy_matches_snapshots_and_reference():
     assert (CFG.ark, CFG.mds, CFG.alpha) == (ref.ark, ref.mds, ref.alpha)
 
 
+def test_default_fr377_sponge_config_matches_reference():
+    got = poseidon.default_fr377_sponge_config()
+    ref = ref_poseidon.default_fr377_sponge_config()
+    fields = ("rate", "capacity", "alpha", "full_rounds", "partial_rounds",
+              "ark", "mds")
+    assert ({k: getattr(got, k) for k in fields}
+            == {k: getattr(ref, k) for k in fields})
+    assert got.spec.p == ref.spec.p and got is CFG
+
+
 @pytest.mark.parametrize("absorb_n,squeeze_n", SNAPSHOTS)
 def test_host_sponge_matches_snapshots(absorb_n, squeeze_n):
     sponge = poseidon.Sponge(CFG, host=True)

@@ -1,6 +1,7 @@
 """The port stands alone: every module (and the rank-side test helpers of
-tests/torch_ranks.py) imports with jax blocked, no source names jax or the
-reference package, a spawned rank loads neither, and without a card the
+tests/torch_ranks.py) imports with jax blocked, the byte form of points
+runs there without the reference's host library, no source names jax or
+the reference package, a spawned rank loads neither, and without a card the
 default-device entry points (the MSM's on both routes, the test SRS's on
 both curves, the NTT domain's, the Poseidon sponge's, the Goldilocks
 NTT's, Marlin's index and prover, PoSW's setup, the SRS loader, the
@@ -58,11 +59,19 @@ def test_every_module_imports_with_jax_blocked():
         "ref = [m for m in sys.modules",
         "       if m == 'zprize_tpu' or m.startswith('zprize_tpu.')]",
         "assert not ref, ref",
+        # the byte form of points runs without the reference's host library
+        "from zprize_tpu_torch.curve.spec import BLS12_377_G1 as c",
+        "from zprize_tpu_torch.utils import native",
+        "pts = [(c.gen_x, c.gen_y), None]",
+        "assert native.deserialize_points(",
+        "    c, native.serialize_points(c, pts)) == pts",
+        "maps = open('/proc/self/maps').read()",
+        "assert 'zkhost' not in maps and '/native/' not in maps",
         "print(len(names))",
     ])
     r = _python(["-c", code], ROOT)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 56     # 43 modules, 13 subpackages
+    assert int(r.stdout.split()[-1]) >= 57     # 44 modules, 13 subpackages
 
 
 def test_sources_name_neither_jax_nor_the_reference_package():
@@ -70,9 +79,9 @@ def test_sources_name_neither_jax_nor_the_reference_package():
              if p.suffix in (".py", ".cu", ".cuh", ".cc")
              and "_build" not in p.parts]
     files += [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_ranks.py"]
-    # 56 modules, 7 CUDA sources, the host lincomb source, chip_smoke and
+    # 57 modules, 7 CUDA sources, the host lincomb source, chip_smoke and
     # the rank-side test helpers
-    assert len(files) >= 66
+    assert len(files) >= 67
     for path in files:
         text = path.read_text()
         assert "zprize_tpu." not in text, path

@@ -1,16 +1,32 @@
 """The port's polynomial ops and KZG (zprize_tpu_torch/poly, pcs) against
-python ints, on the CPU (plain versions of the kernels).  Exact: field
-values compare as canonical ints, points as affine ints."""
+python ints, on the CPU (plain versions of the kernels), and its trapdoor
+check against the reference package's.  Exact: field values compare as
+canonical ints, points as affine ints.
+
+The reference's `verify_with_trapdoor` traces two scalar ladders of JAX
+(5-15 s a call on a CPU), so the fast tier runs it once live, on the
+identity-witness opening over BLS12-381, and holds the port's verdicts on
+every opening against the python-int equation and `kzg.verify`; the slow
+`test_trapdoor_verdicts_match_reference_on_its_srs` runs every opening on
+both curves through the reference, on its own test SRS carried across."""
 
 import random
 
 import pytest
 import torch
 
+from zprize_tpu.curve import sw as ref_sw
+from zprize_tpu.curve.spec import BLS12_377_G1 as REF_377
+from zprize_tpu.curve.spec import BLS12_381_G1 as REF_381
+from zprize_tpu.field import fp as ref_fp
+from zprize_tpu.pcs import kzg as ref_kzg
+from zprize_tpu_torch import convert
 from zprize_tpu_torch.curve import sw
-from zprize_tpu_torch.curve.spec import BLS12_377_G1
+from zprize_tpu_torch.curve.spec import BLS12_377_G1, BLS12_381_G1
 from zprize_tpu_torch.field import fp
 from zprize_tpu_torch.msm import pippenger
+from zprize_tpu_torch.pairing.host import host_pairing
+from zprize_tpu_torch.pairing.params import pairing_for_curve
 from zprize_tpu_torch.pcs import kzg
 from zprize_tpu_torch.poly import ops
 from zprize_tpu_torch.utils import oracle
@@ -137,6 +153,9 @@ def test_open_and_verify(srs):
     assert kzg.fr_int(CURVE, y) == _horner(_coeffs(10, 4), 77777)
     assert kzg.verify(srs, com, z, y, w)
     assert not kzg.verify(srs, com, z, (kzg.fr_int(CURVE, y) + 1) % R, w)
+    assert kzg.verify_with_trapdoor(srs, com, z, y, w)
+    assert not kzg.verify_with_trapdoor(srs, com, z,
+                                        (kzg.fr_int(CURVE, y) + 1) % R, w)
     c_pt, w_pt = kzg.point_ints(CURVE, com), kzg.point_ints(CURVE, w)
     y_i = kzg.fr_int(CURVE, y)
     checks = [(c_pt, 77777, y_i, w_pt), (c_pt, 77777, y_i, w_pt)]
@@ -161,3 +180,114 @@ def test_commit_batch_names_its_queue_item(srs):
     assert got[1] == oracle.ec_mul(oracle.generator(CURVE), k, CURVE.field.p)
     with pytest.raises(ValueError, match="larger than the SRS"):
         kzg.commit_batch(srs, fp.from_ints(FR, [[1] * 15]), shift=2)
+
+
+OPENINGS = ["honest", "y_plus_1", "wrong_witness", "identity_witness",
+            "all_identity"]
+COEFFS = _coeffs(10, 4)
+Z = 77777
+
+
+def _opening(curve, tau, case):
+    """(C, z, y, W) of one opening as ints (points affine, None for the
+    identity), made with the trapdoor: C = p(tau)·G, W = q(tau)·G where
+    q = (p - p(z)) / (X - z); or a tampered or identity opening."""
+    r, q = curve.order, curve.field.p
+    g = oracle.generator(curve)
+    p_tau, y = _horner(COEFFS, tau) % r, _horner(COEFFS, Z) % r
+    w_k = (p_tau - y) * pow(tau - Z, -1, r) % r
+    c, w = oracle.ec_mul(g, p_tau, q), oracle.ec_mul(g, w_k, q)
+    if case == "y_plus_1":
+        y += 1
+    elif case == "wrong_witness":
+        w = oracle.ec_mul(g, w_k + 1, q)
+    elif case == "identity_witness":
+        c, w = oracle.ec_mul(g, y, q), None
+    elif case == "all_identity":
+        c, y, w = None, 0, None
+    return c, Z, y, w
+
+
+def _equation(curve, tau, c, z, y, w) -> bool:
+    """((tau - z) mod r)·W == C - (y mod r)·G on python ints."""
+    r, q = curve.order, curve.field.p
+    y_g = oracle.ec_mul(oracle.generator(curve), y % r, q)
+    neg_y_g = None if y_g is None else (y_g[0], -y_g[1] % q)
+    return (oracle.ec_mul(w, (tau - z) % r, q)
+            == oracle.ec_add(c, neg_y_g, q))
+
+
+def _trapdoor_srs(curve, seed):
+    """What the two checks read of `setup_test_srs(curve, size, seed)`:
+    its tau and G2 pair (its G1 powers take seconds on a CPU)."""
+    tau = random.Random(seed ^ 0x5EED).randrange(1, curve.order)
+    hp = host_pairing(pairing_for_curve(curve))
+    return kzg.Srs(curve, None, hp.g2_gen, hp.g2_mul(hp.g2_gen, tau), tau)
+
+
+def _ref_verdict(ref_srs, c, z, y, w) -> bool:
+    """The reference's `verify_with_trapdoor` on the same opening."""
+    curve = ref_srs.curve
+
+    def pt(a):
+        if a is None:
+            return ref_sw.identity(curve)
+        return ref_sw.Point(ref_fp.from_ints(curve.field, a[0]),
+                            ref_fp.from_ints(curve.field, a[1]),
+                            ref_fp.ones(curve.field))
+
+    return ref_kzg.verify_with_trapdoor(
+        ref_srs, pt(c), ref_fp.from_ints(curve.scalar, z),
+        ref_fp.from_ints(curve.scalar, y % curve.order), pt(w))
+
+
+@pytest.mark.parametrize("case", OPENINGS)
+def test_trapdoor_verdicts_match_the_equation_and_verify(case):
+    srs = _trapdoor_srs(CURVE, 3)
+    c, z, y, w = _opening(CURVE, srs.tau, case)
+    got = kzg.verify_with_trapdoor(srs, c, z, y, w)
+    assert got == (case not in ("y_plus_1", "wrong_witness"))
+    assert got == _equation(CURVE, srs.tau, c, z, y, w)
+    # the honest and y + 1 openings are test_open_and_verify's (the same
+    # polynomial, z and SRS), which holds both checks to each other there
+    # (a pairing costs about a second)
+    if case not in ("honest", "y_plus_1"):
+        assert got == kzg.verify(srs, c, z, y, w)
+
+
+def test_trapdoor_check_needs_tau():
+    """A SRS without tau: the port raises ValueError, the reference
+    asserts."""
+    c, z, y, w = _opening(CURVE, 5, "honest")
+    with pytest.raises(ValueError, match="tau"):
+        kzg.verify_with_trapdoor(kzg.Srs(CURVE, None), c, z, y, w)
+    with pytest.raises(AssertionError, match="test SRS"):
+        _ref_verdict(ref_kzg.Srs(REF_377, None), c, z, y, w)
+
+
+def test_identity_witness_verdict_matches_reference_live():
+    """One live reference call, on BLS12-381: W = identity with C = y·G
+    holds (the reference's projective equality of two identities).  The
+    reference's check reads only its SRS's tau, which it gets alone."""
+    srs = _trapdoor_srs(BLS12_381_G1, 9)
+    c, z, y, w = _opening(BLS12_381_G1, srs.tau, "identity_witness")
+    got = kzg.verify_with_trapdoor(srs, c, z, y, w)
+    assert got == _ref_verdict(ref_kzg.Srs(REF_381, None, tau=srs.tau),
+                               c, z, y, w)
+    assert got and _equation(BLS12_381_G1, srs.tau, c, z, y, w)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name", ["377", "381"])
+def test_trapdoor_verdicts_match_reference_on_its_srs(name):
+    """Every opening through the reference, on its `setup_test_srs(curve,
+    8, seed)` carried across with `convert.srs_from_reference` (about a
+    minute a curve)."""
+    curve, ref_curve = {"377": (BLS12_377_G1, REF_377),
+                        "381": (BLS12_381_G1, REF_381)}[name]
+    ref_srs = ref_kzg.setup_test_srs(ref_curve, 8, seed=9)
+    srs = convert.srs_from_reference(ref_srs, device="cpu")
+    for case in OPENINGS:
+        c, z, y, w = _opening(curve, srs.tau, case)
+        assert (kzg.verify_with_trapdoor(srs, c, z, y, w)
+                == _ref_verdict(ref_srs, c, z, y, w)), case

@@ -128,6 +128,28 @@ def test_group_law_matches_reference(lanes, op):
         assert _ints(a) == _ref_ints(b)
 
 
+@pytest.mark.parametrize("op", ["neg_pre", "is_identity"])
+def test_neg_pre_and_is_identity_match_reference(lanes, op):
+    """-q of the precomputed operands (whose negation adds to the
+    identity), and the identity test of extended points with lane IDENT
+    the identity."""
+    _, (tx, ty, _), (rtx, rty, _) = lanes
+    if op == "neg_pre":
+        out = te.neg_pre(CURVE, te.precompute(CURVE, tx, ty))
+        ref = ref_te.neg_pre(REF_CURVE, ref_te.precompute(REF_CURVE, rtx,
+                                                          rty))
+        for a, b in zip(out, ref):
+            assert _ints(a) == _ref_ints(b)
+        p1, _ = _extended(tx, ty, 4)
+        total = te.add_mixed(CURVE, p1, out)
+        assert te.is_identity(CURVE, total).all()
+    else:
+        p1, rp1 = _extended(tx, ty, 4)
+        got = te.is_identity(CURVE, p1).tolist()
+        assert got == np.asarray(ref_te.is_identity(REF_CURVE, rp1)).tolist()
+        assert got == [i == IDENT for i in range(N)]
+
+
 def test_te_to_sw_host_round_trip(lanes):
     pts, (tx, ty, _), _ = lanes
     p1, _ = _extended(tx, ty, 3)

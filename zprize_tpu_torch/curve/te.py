@@ -166,11 +166,21 @@ def select(cond, a: TePoint, b: TePoint) -> TePoint:
     return TePoint(*(fp.select(cond, x, y) for x, y in zip(a, b)))
 
 
+def is_identity(curve: CurveSpec, p1: TePoint) -> torch.Tensor:
+    """(0 : Y : Y : 0): X = 0 and Y = Z, lane by lane."""
+    f = curve.field
+    return fp.is_zero(f, p1.x) & fp.eq(f, p1.y, p1.z)
+
+
+def neg_pre(curve: CurveSpec, q: TePre) -> TePre:
+    """-(X, Y) = (-X, Y): swaps the Y±X planes and negates the 2dXY plane."""
+    return TePre(q.ym, q.yp, fp.neg(curve.field, q.kt))
+
+
 def select_neg_pre(curve: CurveSpec, sign, q: TePre) -> TePre:
-    """Lane select of q / -q: -(X, Y) swaps Y±X and negates the 2dXY plane."""
-    return TePre(fp.select(sign, q.ym, q.yp),
-                 fp.select(sign, q.yp, q.ym),
-                 fp.select(sign, fp.neg(curve.field, q.kt), q.kt))
+    """Lane select of q / -q."""
+    return TePre(*(fp.select(sign, n, a)
+                   for n, a in zip(neg_pre(curve, q), q)))
 
 
 # ---------------------------------------------------------------------------
@@ -286,8 +296,7 @@ def te_to_sw_affine(curve: CurveSpec, pts: torch.Tensor):
                fp.constant(f, pr.alpha, (), dev))
     y = fp.mul(f, fp.mul(f, zpy, fp.mul(f, p.z, fp.constant(f, pr.ts, (),
                                                            dev))), dinv)
-    inf = fp.is_zero(f, p.x) & fp.eq(f, p.y, p.z)
-    return x, y, inf
+    return x, y, is_identity(curve, p)
 
 
 def te_to_sw_host(curve: CurveSpec, x: int, y: int, z: int

@@ -24,8 +24,9 @@ import functools
 import torch
 
 from ..field import fp
+from ..field.spec import BLS12_377_FR
 from ..utils.device import resolve_device
-from .grain import PoseidonConfig
+from .grain import PoseidonConfig, snarkvm_config
 
 
 @functools.lru_cache(maxsize=None)
@@ -166,3 +167,9 @@ def hash_many(cfg: PoseidonConfig, inputs, num_outputs: int = 1) -> list:
     sponge = Sponge(cfg, inputs[0].shape[:-1], inputs[0].device)
     sponge.absorb(inputs)
     return sponge.squeeze(num_outputs)
+
+
+def default_fr377_sponge_config() -> PoseidonConfig:
+    """snarkVM's rate-2 Poseidon parameters over the BLS12-377 scalar field:
+    the sponge of the transcripts and of PoSW on that curve."""
+    return snarkvm_config(BLS12_377_FR, 2)

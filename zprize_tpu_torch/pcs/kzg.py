@@ -6,7 +6,9 @@ Semantics follow KZG10 as jf-plonk and snarkVM use it
 MSM over the SRS G1 powers; the opening witness is p(X) - p(z) divided by
 (X - z); `verify` is the pairing check e(C - y·G + z·W, H) · e(-W, tau·H)
 == 1 (`winderica/plonk/src/proof_system/verifier.rs:229`), on the host
-(`pairing/host.py`): a handful of points.
+(`pairing/host.py`): a handful of points.  `verify_with_trapdoor` checks
+the same equation in G1 with a test SRS's tau (the reference tests' fast
+gate).
 
 Coefficients are (n, n_words) Montgomery words of the scalar field;
 points come back as SW projective host words (`sw.Point`, what
@@ -214,6 +216,18 @@ def fr_int(curve: CurveSpec, x: torch.Tensor) -> int:
     return int(fp.to_ints(curve.scalar, x)[()])
 
 
+def _opening_ints(curve: CurveSpec, commitment, z, y, witness):
+    """An opening's points as affine int pairs (None = identity) and its z,
+    y as ints, from `sw.Point`s or pairs and scalar rows or ints."""
+    def pt(a):
+        return point_ints(curve, a) if isinstance(a, sw.Point) else a
+
+    def scalar(a):
+        return a if isinstance(a, int) else fr_int(curve, a)
+
+    return pt(commitment), scalar(z), scalar(y), pt(witness)
+
+
 def verify(srs: Srs, commitment, z, y, witness) -> bool:
     """KZG verification by the ate pairing:
         e(C - y·G + z·W, H) · e(-W, tau·H) == 1.
@@ -224,12 +238,7 @@ def verify(srs: Srs, commitment, z, y, witness) -> bool:
         raise ValueError("SRS lacks its G2 side")
     curve = srs.curve
     p = curve.field.p
-    z_i = z if isinstance(z, int) else fr_int(curve, z)
-    y_i = y if isinstance(y, int) else fr_int(curve, y)
-    c_pt = (commitment if not isinstance(commitment, sw.Point)
-            else point_ints(curve, commitment))
-    w_pt = (witness if not isinstance(witness, sw.Point)
-            else point_ints(curve, witness))
+    c_pt, z_i, y_i, w_pt = _opening_ints(curve, commitment, z, y, witness)
     g = (curve.gen_x, curve.gen_y)
     a_pt = g1_add(p, c_pt, g1_neg(p, g1_mul(p, g, y_i)))
     if w_pt is not None:
@@ -243,6 +252,24 @@ def verify(srs: Srs, commitment, z, y, witness) -> bool:
     if not pairs:
         return True
     return hp.multi_pairing_is_one(pairs)
+
+
+def verify_with_trapdoor(srs: Srs, commitment, z, y, witness) -> bool:
+    """The KZG equation in G1 with a test SRS's trapdoor:
+        ((tau - z) mod r)·W == C - (y mod r)·G,
+    the equation `verify` checks in the exponent.  The same inputs as
+    `verify`; one point a side on host ints (`pairing/host.py`), as
+    `te.te_to_sw_host` does for the MSM result: the work is a few scalar
+    ladders, latency-bound, so the card has no part in it."""
+    if srs.tau is None:
+        raise ValueError("trapdoor verification needs a test SRS (tau)")
+    curve = srs.curve
+    p, r = curve.field.p, curve.order
+    c_pt, z_i, y_i, w_pt = _opening_ints(curve, commitment, z, y, witness)
+    lhs = g1_mul(p, w_pt, (srs.tau - z_i) % r)
+    rhs = g1_add(p, c_pt, g1_neg(p, g1_mul(p, (curve.gen_x, curve.gen_y),
+                                           y_i % r)))
+    return lhs == rhs
 
 
 def combine_ints(curve: CurveSpec, pts, ks):
